@@ -7,8 +7,12 @@ K3 residual-VQ snap) from ``syntalker_tpu_torch/csrc`` with nvcc, holds each
 against its plain PyTorch version on the card at full width, then drives
 ``MotionGenerationService`` at the full ``MDMConfig()`` width with seeded
 random weights: once through K1 (``fused_loop=True``) and once through K2,
-both decoding through K3. Prints one JSON line per phase, then the
-``kernels`` line, the card's name and power limit, and last
+both decoding through K3. Before that it times the GEMM of K1 and K2 alone at
+the six shapes of the path, at 256 and 8,192 rows, beside its bound and
+``torch.matmul`` (a yardstick; the port never calls it), and K2 beside one
+``torch.nn.TransformerEncoder``. Takes about a minute on an H100, the
+~15 s build included. Prints one JSON line per phase, then the ``kernels``
+line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
 """
@@ -43,6 +47,8 @@ SAMPLER_REL = 5e-2  # bf16 weights and matmul inputs against f32, through 4 wind
 SERVE_BATCH, SERVE_SECONDS = 8, 16.0  # 4 windows, 116 latent frames, 464 output frames
 SERVE_LENGTHS_S = (16.0, 12.5, 9.0, 15.2, 6.3)  # five requests of different lengths
 
+TILES = {256: (1032, 1064), 8192: (1128, 2128)}  # GEMM tiles timed beside the kernel's own choice, by rows
+
 DEV = torch.device("cuda")
 
 
@@ -67,6 +73,19 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(launch, reps: int = 20, iters: int = 5) -> float:
+    """Mean device time of one ``launch()`` inside a CUDA graph of ``reps``
+    of them, which is how the main path runs its kernels: launch gaps of a
+    graph and a warm L2, no host time."""
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            launch()
+    return cuda_ms(graph.replay, iters) / reps
 
 
 def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -109,6 +128,17 @@ def window_flops(cfg: MDMConfig, b: int, t: int, steps: int):
     return steps * per_step + 2 * rows * a * d, steps * attn
 
 
+def stack_design_bytes(cfg: MDMConfig, b: int, t: int, weight_bytes: int) -> int:
+    """Bytes one pass of the stack moves as designed: the weights once, and
+    per layer the f32 stream read by the two LayerNorms and read and written
+    by proj and fc2, the bf16 LayerNorm output written and read twice, the
+    f32 qkv buffer written and read, and the bf16 attention output and
+    hidden layer written and read."""
+    d, f, rows = cfg.latent_dim, cfg.ff_size, b * t
+    per_layer = rows * (4 * d * 6 + 2 * d * 4 + 4 * 3 * d * 2 + 2 * d * 2 + 2 * f * 2)
+    return weight_bytes + cfg.num_layers * per_layer
+
+
 # ---------------------------------------------------------------------------
 # phases
 
@@ -119,10 +149,79 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": took})
 
 
+def phase_gemm(cfg: MDMConfig) -> None:
+    """The GEMM alone at the six (N, K) of the path, at the service's 256
+    rows and at 8,192, each with the epilogue the path gives it, and under
+    each tile of ``TILES``. The two that read a LayerNorm are also timed with it: as the launch of its own that
+    the path uses, and folded into the GEMM (the A mode the path does not
+    use, because it measures slower)."""
+    d, f, c = cfg.latent_dim, cfg.ff_size, cfg.latent_total_dim
+    E = mdm_cuda
+    shapes = [  # name, N, K, reads a LayerNorm, epilogue
+        ("qkv", 3 * d, d, True, E.EPI_STORE),
+        ("proj", d, d, False, E.EPI_BIAS_RESIDUAL),
+        ("fc1", f, d, True, E.EPI_BIAS_GELU_BF16),
+        ("fc2", d, f, False, E.EPI_BIAS_RESIDUAL),
+        ("input_process", d, c, False, E.EPI_BIAS_BF16),
+        ("output", c, d, False, E.EPI_DDIM),
+    ]
+    g = torch.Generator(device=DEV).manual_seed(11)
+    for m in (256, 8192):
+        for name, n, k, ln, epi in shapes:
+            x = torch.randn(m, k, device=DEV, generator=g)
+            a = x.to(torch.bfloat16)
+            w = (torch.randn(k, n, device=DEV, generator=g) / k**0.5).to(torch.bfloat16)
+            bias = torch.randn(n, device=DEV, generator=g)
+            scale, shift = torch.rand(k, device=DEV, generator=g) + 0.5, torch.randn(k, device=DEV, generator=g)
+            to_h = epi in (E.EPI_BIAS_BF16, E.EPI_BIAS_GELU_BF16)
+            out_f = None if to_h else torch.zeros(m, n, device=DEV)
+            out_h = torch.zeros(m, n, dtype=torch.bfloat16, device=DEV) if to_h else None
+            out = out_h if to_h else out_f
+
+            def launch(a=a, ln=None, tile=0):
+                E._Launcher("block_stack", DEV, count=False).gemm(
+                    a, w, epi, bias=bias, ln=ln, out_f=out_f, out_h=out_h, ca=0.0, cb=1.0, tile=tile)
+
+            def reference(lhs):
+                ref = lhs.to(torch.bfloat16).float() @ w.float() + bias
+                return torch.nn.functional.gelu(ref) if epi == E.EPI_BIAS_GELU_BF16 else ref
+
+            launch()  # the residual and DDIM epilogues start from zeros
+            err = rel_err(out.float(), reference(a))
+            assert err <= K2_REL, (name, m, err)
+            moved = nbytes(a, w, bias) + nbytes(out) * (2 if epi in (E.EPI_BIAS_RESIDUAL, E.EPI_DDIM) else 1)
+            bms, by = bound_ms(moved, 2.0 * m * n * k)
+            entry = {"phase": "gemm", "shape": name, "M": m, "N": n, "K": k, "rel_err": err, "ms": graph_ms(launch),
+                     "bound_ms": bms, "bound_by": by, "library_ms": graph_ms(lambda: torch.matmul(a, w)),
+                     # warpgroups * 1000 + columns: the tiles the kernel's own choice is made among
+                     "ms_by_tile": {tile: graph_ms(lambda: launch(tile=tile)) for tile in TILES[m]}}
+            if ln:
+                def layernorm():
+                    E._Launcher("block_stack", DEV, count=False).layernorm(x, scale, shift, a)
+
+                def separate():
+                    layernorm()
+                    launch()
+
+                out.zero_()
+                launch(x, (scale, shift))
+                fold_err = rel_err(out.float(), reference(mdm_cuda._layer_norm(x, scale, shift)))
+                assert fold_err <= K2_REL, (name, m, fold_err)
+                entry.update(layernorm_ms=graph_ms(layernorm), layernorm_then_gemm_ms=graph_ms(separate),
+                             layernorm_folded_ms=graph_ms(lambda: launch(x, (scale, shift))),
+                             layernorm_folded_rel_err=fold_err)
+            emit(entry)
+
+
 def phase_block_stack(mdm, cfg: MDMConfig) -> dict:
     w = mdm_cuda.stack_block_weights(mdm)
     g = torch.Generator(device=DEV).manual_seed(2)
     res = {}
+    # yardstick only: PyTorch's fused encoder at the same width, all in bf16
+    layer = torch.nn.TransformerEncoderLayer(cfg.latent_dim, cfg.num_heads, cfg.ff_size, dropout=0.0,
+                                             activation="gelu", batch_first=True, norm_first=True)
+    encoder = torch.nn.TransformerEncoder(layer, cfg.num_layers, enable_nested_tensor=False)
+    encoder = encoder.to(DEV, torch.bfloat16).eval().requires_grad_(False)
     for b in (8, 256):
         x = torch.randn(b, 32, cfg.latent_dim, device=DEV, generator=g)
         out = mdm_cuda.block_stack(x, w, num_heads=cfg.num_heads)
@@ -132,11 +231,16 @@ def phase_block_stack(mdm, cfg: MDMConfig) -> dict:
         assert torch.isfinite(out).all() and err <= K2_REL, (b, err)
         ms = cuda_ms(lambda: mdm_cuda.block_stack(x, w, num_heads=cfg.num_heads), 10)
         plain_ms = cuda_ms(lambda: mdm_cuda.block_stack_plain(x, w, num_heads=cfg.num_heads), 10)
+        xh = x.to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: encoder(xh), 10)
         mm, attn = block_flops(cfg, b, 32)
         bms, by = bound_ms(nbytes(*w.values()) + 2 * nbytes(x), mm, attn)
         res[b] = dict(rel_err=err, max_abs_err=(out - ref).abs().max().item(), ms=ms, plain_ms=plain_ms,
-                      bound_ms=bms, bound_by=by)
-        emit({"phase": "parity", "kernel": "block_stack", "batch": b, "tol": K2_REL, **res[b]})
+                      bound_ms=bms, bound_by=by, library_ms=library_ms,
+                      design_bytes=stack_design_bytes(cfg, b, 32, nbytes(*w.values())),
+                      launches_per_call=mdm_cuda.block_launches(cfg.num_layers))
+        emit({"phase": "parity", "kernel": "block_stack", "batch": b, "tol": K2_REL,
+              "library": "nn.TransformerEncoder bf16, residual stream in bf16", **res[b]})
     return res
 
 
@@ -160,8 +264,18 @@ def phase_ddim_window(mdm, cfg: MDMConfig, diffusion) -> dict:
             weights = [*fused.blocks.values(), fused.w_in, fused.w2_style, fused.w2_x, fused.w2_at, fused.w_out]
             bf, f32 = window_flops(cfg, b, 32, diffusion.num_steps)
             bms, by = bound_ms(nbytes(*weights, x_init, cond.at_feat, cond.seed_emb) + nbytes(x_init), bf, f32)
-            entry.update(ms=cuda_ms(lambda: fused(x_init, cond), 3),
+            entry.update(ms=cuda_ms(lambda: fused(x_init, cond), 10),
                          plain_ms=cuda_ms(lambda: fused.plain(x_init, cond), 3), bound_ms=bms, bound_by=by)
+            # a second call with other inputs must see its own inputs, not the graph's stale buffers
+            x2 = torch.randn(b, 32, cfg.latent_total_dim, device=DEV, generator=g)
+            cond2 = Conditioning(at_feat=torch.randn(b, 32, cfg.audio_feat_dim, device=DEV, generator=g),
+                                 seed_emb=torch.randn(b, cfg.latent_dim, device=DEV, generator=g))
+            before = mdm_cuda.launches["ddim_window"]
+            err2 = rel_err(fused(x2, cond2), fused.plain(x2, cond2))
+            per_replay = mdm_cuda.launches["ddim_window"] - before
+            assert err2 <= K1_REL, err2
+            assert per_replay == mdm_cuda.window_launches(cfg.num_layers, diffusion.num_steps), per_replay
+            entry.update(second_call_rel_err=err2, launches_per_replay=per_replay)
         res[b] = entry
         emit({"phase": "parity", "kernel": "ddim_window", "batch": b, "tol": K1_REL, **entry})
     return res
@@ -265,7 +379,9 @@ def device_profile(svc) -> dict:
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA), key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
+    gemms = [k for k in kernels if "gemm_kernel" in k[0]]
     return {"flush_ms": ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / ms,
+            "gemm_mean_us": 1e3 * sum(k[1] for k in gemms) / max(1, sum(k[2] for k in gemms)),
             "top": [{"kernel": k[:80], "ms": t, "calls": c} for k, t, c in kernels[:8]]}
 
 
@@ -284,6 +400,9 @@ def phase_serve(mdm, diffusion, rvq, fused_loop: bool) -> dict:
         assert np.isfinite(r.axis_angle).all() and np.isfinite(r.trans).all()
     path = "ddim_window" if fused_loop else "block_stack"
     assert counts[path] > 0 and counts["rvq_encode"] > 0, counts
+    layers, steps = mdm.cfg.num_layers, diffusion.num_steps
+    per_window = mdm_cuda.window_launches(layers, steps) if fused_loop else steps * mdm_cuda.block_launches(layers)
+    assert counts[path] == svc.plan.num_windows * per_window, (counts, per_window)
     # the service pads every request to the bucket length before featurizing it
     t0 = time.perf_counter()
     onset_amplitude_features(np.resize(requests(7)[0].audio, svc.samples), svc.sr)
@@ -309,6 +428,7 @@ def main() -> int:
     rvq = {part: build_rvqvae(RVQVAEConfig(input_dim=dim), seed=10 + i, device=DEV)
            for i, (part, dim) in enumerate((("upper", 78), ("hands", 180), ("lower", 57)))}
 
+    phase_gemm(cfg)
     k2 = phase_block_stack(mdm, cfg)
     k1 = phase_ddim_window(mdm, cfg, diffusion)
     k3 = phase_rvq(rvq["upper"][1].codebook)
@@ -329,7 +449,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": None, "error_vs_tol": err}
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "error_vs_tol": err}
         for name, source, replaces, r, launches, err in rows
     ]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

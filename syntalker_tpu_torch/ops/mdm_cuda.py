@@ -15,10 +15,15 @@ Counterparts in ``syntalker_tpu/ops/mdm_pallas.py``:
 
 The kernels are in ``csrc/mdm_block.cu`` (its header says what bounds them
 and how they are laid out). Hopper blocks carry no state from one launch to
-the next, so where the TPU kernel ran one sequential grid, the host loops
-here over steps and layers and launches a LayerNorm, four GEMMs with fused
-epilogues and an attention kernel per layer, plus K1's projections and
-prologue per step. Every launch is counted in ``launches`` under its
+the next, so where the TPU kernel ran one sequential grid, a layer here is
+seven launches (LayerNorm, the qkv GEMM, attention, the proj GEMM with the
+residual add, LayerNorm, the fc1 GEMM with GELU, the fc2 GEMM with the
+residual add) and a K1 step adds its projections and its prologue, which
+also does the first layer's LayerNorm. The launches of one window (K1) or one pass of the stack (K2) are
+recorded once per (B, T) into a CUDA graph over static buffers and replayed
+for every call: the TPU kernel was one launch a window, and a graph is the
+card's way to that. :func:`window_launches` and :func:`block_launches` give
+the number of kernels a replay runs; ``launches`` counts them under the
 kernel's name. The TPU-only knobs ``tile_samples``, ``attn_group``,
 ``_VMEM_LIMIT`` and the RoPE permutation matrix have no counterpart.
 
@@ -30,6 +35,8 @@ keep LayerNorm, softmax, residual stream and DDIM state in f32, and accept
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -120,73 +127,194 @@ def block_stack_plain(x: torch.Tensor, w: dict, *, num_heads: int) -> torch.Tens
 # kernel launches
 # ---------------------------------------------------------------------------
 
+A_BF16, A_F32, A_F32_LN = range(3)  # how mdm_gemm reads its A operand
+F32_A_MAX_K = 512  # widest f32 A (with or without LayerNorm): the kernel holds its rows in registers
+
+
+def block_launches(num_layers: int) -> int:
+    """Kernels one pass of the block stack launches: per layer LayerNorm,
+    qkv, attention, proj, LayerNorm, fc1, fc2."""
+    return 7 * num_layers
+
+
+def window_launches(num_layers: int, steps: int) -> int:
+    """Kernels one K1 window launches: the audio/word slab and the style
+    rows once; per step input_process, the x slab, the prologue (which also
+    does the first layer's LayerNorm), the block stack and the output
+    projection with the DDIM update."""
+    return 2 + steps * (4 + block_launches(num_layers) - 1)
+
+
+def check_gemm(a, w, epi, *, bias=None, ln=None, out_f=None, out_h=None):
+    """Raises on what mdm_gemm does not take; returns its A mode."""
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
+        raise ValueError(f"gemm: A {tuple(a.shape)} against W {tuple(w.shape)}")
+    if w.dtype != torch.bfloat16 or a.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gemm: A {a.dtype} and W {w.dtype}; takes f32 or bf16 A and bf16 W")
+    m, k = a.shape
+    n = w.shape[1]
+    if m < 1 or k % 8 or n % 8:
+        raise ValueError(f"gemm: M={m} N={n} K={k}; TMA rows are multiples of 16 bytes, so N and K of 8")
+    out = out_h if epi in (EPI_BIAS_BF16, EPI_BIAS_GELU_BF16) else out_f
+    want = torch.bfloat16 if out is out_h else torch.float32
+    if out is None or out.shape != (m, n) or out.dtype != want:
+        raise ValueError(f"gemm: epilogue {epi} writes {want} ({m}, {n})")
+    if out is out_f and out_h is not None and (out_h.shape != (m, n) or out_h.dtype != torch.bfloat16):
+        raise ValueError(f"gemm: the bf16 copy of the output is ({m}, {n}) bf16")
+    if out_h is not None and epi == EPI_STORE:
+        raise ValueError("gemm: only the residual and DDIM epilogues write a bf16 copy")
+    vectors = [(bias, n, "bias")] + ([(ln[0], k, "LayerNorm scale"), (ln[1], k, "LayerNorm shift")] if ln else [])
+    for v, size, what in vectors:
+        if v is not None and (v.shape != (size,) or v.dtype != torch.float32):
+            raise ValueError(f"gemm: {what} is f32 ({size},)")
+    for t in (a, w, bias, out_f, out_h, *(ln or ())):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16 or t.device != a.device):
+            raise ValueError("gemm: operands are contiguous, 16-byte aligned and on one device")
+    if ln is not None and a.dtype != torch.float32:
+        raise ValueError("gemm: the LayerNorm fold takes f32 rows")
+    if a.dtype == torch.float32 and k > F32_A_MAX_K:
+        raise ValueError(f"gemm: an f32 A is at most {F32_A_MAX_K} wide; pass bf16")
+    if a.dtype == torch.bfloat16:
+        return A_BF16
+    return A_F32_LN if ln is not None else A_F32
+
+
+def check_attention(qkv, out, b, t, d, num_heads):
+    """Raises on what mdm_attention does not take."""
+    if d % num_heads or (d // num_heads) % 4:
+        raise ValueError(f"attention: head width {d}/{num_heads} is not a multiple of 4")
+    if qkv.shape != (b * t, 3 * d) or qkv.dtype != torch.float32 or not qkv.is_contiguous():
+        raise ValueError(f"attention: qkv is contiguous f32 ({b * t}, {3 * d})")
+    if out.shape != (b * t, d) or out.dtype != torch.bfloat16 or not out.is_contiguous():
+        raise ValueError(f"attention: out is contiguous bf16 ({b * t}, {d})")
+    hd = d // num_heads
+    if 4 * (t * (2 * hd + 4) + (t + 3) * (hd + t)) > 160 * 1024:  # K, V, and q and scores of all rows
+        raise ValueError(f"attention: {t} tokens x {hd} do not fit in shared memory")
+
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-class _Launcher:
-    """Launches the csrc/mdm_block.cu kernels on the current stream and
-    counts each one under ``name`` in ``launches``."""
+@functools.cache
+def _library(device_index: int):
+    """csrc/mdm_block.cu, built, loaded and initialised for the device."""
+    lib = _build.library("mdm_block")
+    with torch.cuda.device(device_index):
+        _build.check(lib.mdm_init(device_index), "mdm_init")
+    return lib
 
-    def __init__(self, name: str, device: torch.device):
-        self.name = name
-        self.lib = _build.library("mdm_block")
+
+class _Launcher:
+    """Launches the csrc/mdm_block.cu kernels on the current stream. Every
+    launch adds one to ``launched``; with ``count`` it also adds one to
+    ``launches[name]`` (off while a CUDA graph records, since a recorded
+    launch runs only when the graph is replayed)."""
+
+    def __init__(self, name: str, device: torch.device, count: bool = True):
+        self.name, self.count, self.launched = name, count, 0
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        self.lib = _library(index)
         self.stream = torch.cuda.current_stream(device).cuda_stream
 
     def _done(self, err, what):
         _build.check(err, what)
-        launches[self.name] += 1
+        self.launched += 1
+        if self.count:
+            launches[self.name] += 1
 
     def layernorm(self, x, scale, shift, out):
         rows, d = x.shape
+        if d % 4 or d > 1024 or x.dtype != torch.float32 or out.dtype != torch.bfloat16 or out.shape != x.shape:
+            raise ValueError(f"layernorm: f32 rows of at most 1024, a multiple of 4, to bf16; got {tuple(x.shape)}")
         self._done(self.lib.mdm_layernorm_bf16(
             x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), rows, d, LN_EPS,
             self.stream), "mdm_layernorm_bf16")
 
-    def gemm(self, a, w, epi, *, bias=None, out_f=None, out_h=None, ca=0.0, cb=0.0):
-        m, k = a.shape
-        kw, n = w.shape
-        if kw != k or w.dtype != torch.bfloat16 or a.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"gemm: A {tuple(a.shape)} {a.dtype} vs W {tuple(w.shape)} {w.dtype}")
+    def gemm(self, a, w, epi, *, bias=None, ln=None, out_f=None, out_h=None, ca=0.0, cb=0.0, tile=0):
+        """``ln=(scale, shift)`` normalises the f32 rows of A first.
+        ``tile`` (consumer warpgroups * 1000 + columns) overrides the
+        kernel's own choice; measurements use it."""
+        a_mode = check_gemm(a, w, epi, bias=bias, ln=ln, out_f=out_f, out_h=out_h)
+        (m, k), n = a.shape, w.shape[1]
+        scale, shift = ln if ln else (None, None)
         self._done(self.lib.mdm_gemm(
-            a.data_ptr(), int(a.dtype == torch.float32), w.data_ptr(), m, n, k, epi,
-            _ptr(bias), _ptr(out_f), _ptr(out_h), float(ca), float(cb), self.stream), "mdm_gemm")
+            a.data_ptr(), a_mode, w.data_ptr(), m, n, k, epi, _ptr(bias), _ptr(scale), _ptr(shift),
+            LN_EPS, _ptr(out_f), _ptr(out_h), float(ca), float(cb), tile, self.stream), "mdm_gemm")
 
     def attention(self, qkv, out, b, t, d, num_heads):
-        hd = d // num_heads
+        check_attention(qkv, out, b, t, d, num_heads)
         self._done(self.lib.mdm_attention(
-            qkv.data_ptr(), out.data_ptr(), b, t, d, num_heads, hd**-0.5, self.stream),
-            "mdm_attention")
+            qkv.data_ptr(), out.data_ptr(), b, t, d, num_heads, (d // num_heads) ** -0.5, 0,
+            self.stream), "mdm_attention")
 
-    def prologue(self, style_p, xe_p, at_p, bias, cos_t, sin_t, act, b, t, d, rope_heads):
+    def prologue(self, style_p, xe_p, at_p, bias, cos_t, sin_t, act, ln, act_ln, b, t, d, rope_heads):
+        """``act_ln`` receives LayerNorm(act) with ``ln=(scale, shift)`` as bf16."""
+        if d > 1024 or act.shape != (b * t, d) or act_ln.shape != act.shape or act_ln.dtype != torch.bfloat16:
+            raise ValueError(f"prologue: rows of at most 1024, f32 and bf16 ({b * t}, {d}) outputs")
         self._done(self.lib.mdm_prologue(
             style_p.data_ptr(), xe_p.data_ptr(), at_p.data_ptr(), bias.data_ptr(),
-            cos_t.data_ptr(), sin_t.data_ptr(), act.data_ptr(), b, t, d, rope_heads,
-            self.stream), "mdm_prologue")
+            cos_t.data_ptr(), sin_t.data_ptr(), act.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(),
+            act_ln.data_ptr(), LN_EPS, b, t, d, rope_heads, self.stream), "mdm_prologue")
 
-    def blocks(self, x, w, b, t, num_heads, bufs):
-        """The layer loop on the f32 activation x (B*T, D), in place."""
+    def blocks(self, x, w, b, t, num_heads, bufs, x_h=None, first_ln_done=False):
+        """The layer loop on the f32 activation x (B*T, D), in place. With
+        ``first_ln_done`` the first layer's LayerNorm of x is in ``bufs[0]``
+        already. The last layer also writes the result as bf16 into ``x_h``
+        if given."""
         d = x.shape[-1]
         h, qkv, attn, ff = bufs
-        for layer in range(w["wqkv"].shape[0]):
-            self.layernorm(x, w["ln1_s"][layer], w["ln1_b"][layer], h)
+        layers = w["wqkv"].shape[0]
+        for layer in range(layers):
+            if layer or not first_ln_done:
+                self.layernorm(x, w["ln1_s"][layer], w["ln1_b"][layer], h)
             self.gemm(h, w["wqkv"][layer], EPI_STORE, out_f=qkv)
             self.attention(qkv, attn, b, t, d, num_heads)
             self.gemm(attn, w["wproj"][layer], EPI_BIAS_RESIDUAL, bias=w["bproj"][layer], out_f=x)
             self.layernorm(x, w["ln2_s"][layer], w["ln2_b"][layer], h)
             self.gemm(h, w["wfc1"][layer], EPI_BIAS_GELU_BF16, bias=w["bfc1"][layer], out_h=ff)
-            self.gemm(ff, w["wfc2"][layer], EPI_BIAS_RESIDUAL, bias=w["bfc2"][layer], out_f=x)
+            self.gemm(ff, w["wfc2"][layer], EPI_BIAS_RESIDUAL, bias=w["bfc2"][layer], out_f=x,
+                      out_h=x_h if layer == layers - 1 else None)
 
 
 def _block_buffers(rows, d, f, device):
     bf = torch.bfloat16
     return (
-        torch.empty(rows, d, dtype=bf, device=device),
-        torch.empty(rows, 3 * d, device=device),
-        torch.empty(rows, d, dtype=bf, device=device),
-        torch.empty(rows, f, dtype=bf, device=device),
+        torch.zeros(rows, d, dtype=bf, device=device),
+        torch.zeros(rows, 3 * d, device=device),
+        torch.zeros(rows, d, dtype=bf, device=device),
+        torch.zeros(rows, f, dtype=bf, device=device),
     )
+
+
+class _Replay:
+    """One CUDA graph of a fixed launch sequence over static buffers.
+
+    ``record(launcher)`` makes the launches; it may read and write only
+    tensors allocated before this object is built, and must not allocate or
+    synchronise. It runs once for real on a side stream (which also fills
+    the kernel library's descriptor cache), then once under capture.
+    ``replay()`` runs the graph on the current stream and counts its kernel
+    nodes in ``launches[name]``."""
+
+    def __init__(self, name: str, device: torch.device, record):
+        self.name = name
+        self.record = record  # its closure keeps the buffers the graph reads and writes alive
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            record(_Launcher(name, device))
+        current.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            recorder = _Launcher(name, device, count=False)  # built on the capture stream
+            record(recorder)
+        self.nodes = recorder.launched
+
+    def replay(self):
+        self.graph.replay()
+        launches[self.name] += self.nodes
 
 
 def _check_cuda(x, w):
@@ -196,18 +324,38 @@ def _check_cuda(x, w):
         raise ValueError("the CUDA kernels take bf16 weights on the input's device")
 
 
+class _StackPlan:
+    """K2 for one (B, T) and one set of weights: the static activation and
+    scratch buffers and the graph of the layer loop over them."""
+
+    def __init__(self, w, b, t, num_heads, device):
+        d, f = w["wqkv"].shape[1], w["wfc1"].shape[-1]
+        self.x = torch.zeros(b * t, d, device=device)
+        bufs = _block_buffers(b * t, d, f, device)
+        self.graph = _Replay("block_stack", device, lambda L: L.blocks(self.x, w, b, t, num_heads, bufs))
+
+
+_stack_plans: dict = {}
+MAX_STACK_PLANS = 8  # graphs kept by block_stack; the oldest goes first
+
+
 def block_stack(x: torch.Tensor, w: dict, *, num_heads: int) -> torch.Tensor:
     """K2: (B, T, D) -> (B, T, D) through the stacked blocks. CPU tensors
-    take the plain version; CUDA tensors launch the kernels."""
+    take the plain version; CUDA tensors replay the graph of the kernels'
+    launches, recorded once per (B, T) and set of weights."""
     if x.device.type == "cpu":
         return block_stack_plain(x, w, num_heads=num_heads)
     _check_cuda(x, w)
     b, t, d = x.shape
-    out = x.float().reshape(b * t, d).contiguous().clone()
-    launcher = _Launcher("block_stack", x.device)
-    bufs = _block_buffers(b * t, d, w["wfc1"].shape[-1], x.device)
-    launcher.blocks(out, w, b, t, num_heads, bufs)
-    return out.reshape(b, t, d)
+    key = (b, t, num_heads, str(x.device), *((k, v.data_ptr(), tuple(v.shape)) for k, v in sorted(w.items())))
+    plan = _stack_plans.get(key)
+    if plan is None:
+        if len(_stack_plans) >= MAX_STACK_PLANS:
+            del _stack_plans[next(iter(_stack_plans))]
+        plan = _stack_plans[key] = _StackPlan(w, b, t, num_heads, x.device)
+    plan.x.copy_(x.reshape(b * t, d))
+    plan.graph.replay()
+    return plan.x.clone().reshape(b, t, d)
 
 
 def make_fused_denoise(mdm: MDM, weights: dict):
@@ -229,7 +377,8 @@ class FusedDDIMWindow:
     per-step timestep embeddings and coefficients in ITERATION order
     (iteration it is step i = S-1-it). ``run(x_init, cond)`` maps initial
     noise (B, T, C) to the final state; CPU tensors take the plain version,
-    CUDA tensors launch the kernels. The audio/word slab ``at @ W2[2D:]``
+    CUDA tensors replay a CUDA graph of the window's kernel launches,
+    recorded once per (B, T). The audio/word slab ``at @ W2[2D:]``
     and the style rows ``(seed_emb + t_emb) @ W2[:D]`` of all steps are
     computed once per window (the same products every step, so exact).
     """
@@ -251,6 +400,7 @@ class FusedDDIMWindow:
         a, b = diffusion.ddim_coefficients()
         self.coef_a, self.coef_b = a.tolist(), b.tolist()
         self._rope = {}
+        self._plans = {}  # (B, T, device) -> _WindowPlan
 
     def rope_tables(self, t: int, device):
         """(cos, sin) tables (T, hd) f32 for one rope sub-head."""
@@ -296,27 +446,57 @@ class FusedDDIMWindow:
 
     def _kernel(self, x_init: torch.Tensor, cond: Conditioning) -> torch.Tensor:
         _check_cuda(x_init, self.blocks)
-        cfg = self.cfg
         b, t, at, style = self._inputs(x_init, cond)
-        c, d, rows = x_init.shape[-1], cfg.latent_dim, b * t
-        dev = x_init.device
-        cos_t, sin_t = self.rope_tables(t, dev)
-        L = _Launcher("ddim_window", dev)
-        x = x_init.float().reshape(rows, c).contiguous().clone()
-        at_p = torch.empty(rows, d, device=dev)
-        L.gemm(at.reshape(rows, -1), self.w2_at, EPI_STORE, out_f=at_p)
-        style_p = torch.empty(style.shape[0] * b, d, device=dev)
-        L.gemm(style.reshape(-1, d), self.w2_style, EPI_STORE, out_f=style_p)
-        x_emb = torch.empty(rows, d, dtype=torch.bfloat16, device=dev)
-        xe_p = torch.empty(rows, d, device=dev)
-        act = torch.empty(rows, d, device=dev)
-        bufs = _block_buffers(rows, d, self.blocks["wfc1"].shape[-1], dev)
-        for it in range(len(self.coef_a)):
-            L.gemm(x, self.w_in, EPI_BIAS_BF16, bias=self.b_in, out_h=x_emb)
-            L.gemm(x_emb, self.w2_x, EPI_STORE, out_f=xe_p)
-            L.prologue(style_p[it * b : (it + 1) * b], xe_p, at_p, self.b_in2, cos_t, sin_t,
-                       act, b, t, d, cfg.rope_heads)
-            L.blocks(act, self.blocks, b, t, cfg.num_heads, bufs)
-            L.gemm(act, self.w_out, EPI_DDIM, bias=self.b_out, out_f=x,
-                   ca=self.coef_a[it], cb=self.coef_b[it])
-        return x.reshape(b, t, c)
+        key = (b, t, str(x_init.device))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = _WindowPlan(self, b, t, at.shape[-1], x_init.device)
+        # the call's inputs into the graph's static buffers; the bf16 copies
+        # round where the plain version's matmuls round their inputs
+        plan.x.copy_(x_init.reshape(plan.x.shape))
+        plan.x_h.copy_(plan.x)
+        plan.at_h.copy_(at.reshape(plan.at_h.shape))
+        plan.style_h.copy_(style.reshape(plan.style_h.shape))
+        plan.graph.replay()
+        return plan.x.clone().reshape(x_init.shape)
+
+
+class _WindowPlan:
+    """K1 for one (B, T): the static buffers of a window (DDIM state in f32
+    and bf16, the bf16 audio/word features and style rows, the slabs, the
+    activation, the block stack's scratch) and the graph of the window's
+    launches over them, with every step's coefficients as launch arguments."""
+
+    def __init__(self, fused: FusedDDIMWindow, b: int, t: int, a_dim: int, dev: torch.device):
+        cfg = fused.cfg
+        c, d, rows = fused.w_in.shape[0], cfg.latent_dim, b * t
+        steps = len(fused.coef_a)
+        bf = torch.bfloat16
+        self.x = torch.zeros(rows, c, device=dev)
+        self.x_h = torch.zeros(rows, c, dtype=bf, device=dev)
+        self.at_h = torch.zeros(rows, a_dim, dtype=bf, device=dev)
+        self.style_h = torch.zeros(steps * b, d, dtype=bf, device=dev)
+        at_p = torch.zeros(rows, d, device=dev)
+        style_p = torch.zeros(steps * b, d, device=dev)
+        x_emb = torch.zeros(rows, d, dtype=bf, device=dev)
+        xe_p = torch.zeros(rows, d, device=dev)
+        act = torch.zeros(rows, d, device=dev)
+        act_h = torch.zeros(rows, d, dtype=bf, device=dev)
+        bufs = _block_buffers(rows, d, fused.blocks["wfc1"].shape[-1], dev)
+        cos_t, sin_t = fused.rope_tables(t, dev)
+        ln1 = (fused.blocks["ln1_s"][0], fused.blocks["ln1_b"][0])
+        style_rows = [style_p[it * b : (it + 1) * b] for it in range(steps)]
+
+        def record(L: _Launcher):
+            L.gemm(self.at_h, fused.w2_at, EPI_STORE, out_f=at_p)
+            L.gemm(self.style_h, fused.w2_style, EPI_STORE, out_f=style_p)
+            for it in range(steps):
+                L.gemm(self.x_h, fused.w_in, EPI_BIAS_BF16, bias=fused.b_in, out_h=x_emb)
+                L.gemm(x_emb, fused.w2_x, EPI_STORE, out_f=xe_p)
+                L.prologue(style_rows[it], xe_p, at_p, fused.b_in2, cos_t, sin_t, act, ln1, bufs[0],
+                           b, t, d, cfg.rope_heads)
+                L.blocks(act, fused.blocks, b, t, cfg.num_heads, bufs, x_h=act_h, first_ln_done=True)
+                L.gemm(act_h, fused.w_out, EPI_DDIM, bias=fused.b_out, out_f=self.x, out_h=self.x_h,
+                       ca=fused.coef_a[it], cb=fused.coef_b[it])
+
+        self.graph = _Replay("ddim_window", dev, record)

@@ -42,26 +42,125 @@ def rel_err(out, ref):
 def test_block_stack_kernel_matches_plain(mdm, dev):
     w = mdm_cuda.stack_block_weights(mdm)
     x = torch.randn(5, 32, SMALL.latent_dim, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    plan = mdm_cuda.block_launches(SMALL.num_layers)
+    assert plan == 7 * SMALL.num_layers
     before = mdm_cuda.launches["block_stack"]
     out = mdm_cuda.block_stack(x, w, num_heads=SMALL.num_heads)
     torch.cuda.synchronize()
-    assert mdm_cuda.launches["block_stack"] == before + 7 * SMALL.num_layers
+    # a new (B, T): one real pass on a side stream before the capture, then the replay
+    assert mdm_cuda.launches["block_stack"] == before + 2 * plan
     assert rel_err(out, mdm_cuda.block_stack_plain(x, w, num_heads=SMALL.num_heads)) < REL
+    out = mdm_cuda.block_stack(x, w, num_heads=SMALL.num_heads)
+    assert mdm_cuda.launches["block_stack"] == before + 3 * plan  # a replay and nothing else
+
+
+def window_inputs(b, g, dev):
+    return (torch.randn(b, 32, SMALL.latent_total_dim, device=dev, generator=g),
+            Conditioning(torch.randn(b, 32, SMALL.audio_feat_dim, device=dev, generator=g),
+                         torch.randn(b, SMALL.latent_dim, device=dev, generator=g)))
 
 
 def test_ddim_window_kernel_matches_plain(mdm, dev):
     fused = mdm_cuda.FusedDDIMWindow(mdm, make_diffusion(steps=100, timestep_respacing="ddim4"))
-    g = torch.Generator(dev).manual_seed(2)
-    x_init = torch.randn(3, 32, SMALL.latent_total_dim, device=dev, generator=g)
-    cond = Conditioning(torch.randn(3, 32, SMALL.audio_feat_dim, device=dev, generator=g),
-                        torch.randn(3, SMALL.latent_dim, device=dev, generator=g))
+    x_init, cond = window_inputs(3, torch.Generator(dev).manual_seed(2), dev)
+    # per step: input_process, x slab, prologue (with the first LayerNorm), 7 per layer less that
+    # LayerNorm, output + update; per window: the audio/word slab and the style rows
+    plan = mdm_cuda.window_launches(SMALL.num_layers, 4)
+    assert plan == 2 + 4 * (4 + 7 * SMALL.num_layers - 1)
     before = mdm_cuda.launches["ddim_window"]
     out = fused(x_init, cond)
     torch.cuda.synchronize()
-    # per step: input_process, x slab, prologue, 7 per layer, output + update;
-    # per window: the audio/word slab and the style rows
-    assert mdm_cuda.launches["ddim_window"] == before + 2 + 4 * (4 + 7 * SMALL.num_layers)
+    assert mdm_cuda.launches["ddim_window"] == before + 2 * plan  # the real pass, then the replay
     assert rel_err(out, fused.plain(x_init, cond)) < REL
+    fused(x_init, cond)
+    assert mdm_cuda.launches["ddim_window"] == before + 3 * plan
+
+
+def test_graph_replay_sees_each_calls_inputs(mdm, dev):
+    """Two batch sizes alive at once, called in turns with new inputs: every
+    call matches the plain version on ITS inputs (no stale static buffer)."""
+    fused = mdm_cuda.FusedDDIMWindow(mdm, make_diffusion(steps=100, timestep_respacing="ddim4"))
+    w = mdm_cuda.stack_block_weights(mdm)
+    g = torch.Generator(dev).manual_seed(5)
+    for b in (2, 3, 2, 3):
+        x_init, cond = window_inputs(b, g, dev)
+        assert rel_err(fused(x_init, cond), fused.plain(x_init, cond)) < REL
+        x = torch.randn(b, 32, SMALL.latent_dim, device=dev, generator=g)
+        out = mdm_cuda.block_stack(x, w, num_heads=SMALL.num_heads)
+        assert rel_err(out, mdm_cuda.block_stack_plain(x, w, num_heads=SMALL.num_heads)) < REL
+    assert len(fused._plans) == 2
+
+
+def gelu(h):
+    return h * 0.5 * (1.0 + torch.erf(h * 0.70710678118654752))
+
+
+def gemm_case(dev, m, n, k, a_dtype, epi, *, ln=False, tile=0, seed=0):
+    """One mdm_gemm launch against a.to(bf16).float() @ w.float() and the
+    epilogue in PyTorch. Returns (error, scale of the reference)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    a = torch.randn(m, k, device=dev, generator=g).to(a_dtype)
+    w = (torch.randn(k, n, device=dev, generator=g) / k**0.5).to(torch.bfloat16)
+    bias = torch.randn(n, device=dev, generator=g)
+    out_f = torch.randn(m, n, device=dev, generator=g)
+    out_h = torch.zeros(m, n, dtype=torch.bfloat16, device=dev)
+    scale, shift = torch.rand(k, device=dev, generator=g) + 0.5, torch.randn(k, device=dev, generator=g)
+    prev = out_f.clone()
+    lhs = mdm_cuda._layer_norm(a.float(), scale, shift) if ln else a
+    acc = lhs.to(torch.bfloat16).float() @ w.float() + bias
+    ca, cb = 0.75, -0.5
+    ref = {mdm_cuda.EPI_STORE: acc, mdm_cuda.EPI_BIAS_BF16: acc.to(torch.bfloat16).float(),
+           mdm_cuda.EPI_BIAS_GELU_BF16: gelu(acc).to(torch.bfloat16).float(),
+           mdm_cuda.EPI_BIAS_RESIDUAL: prev + acc, mdm_cuda.EPI_DDIM: ca * prev + cb * acc}[epi]
+    mdm_cuda._Launcher("block_stack", dev).gemm(
+        a, w, epi, bias=bias, ln=(scale, shift) if ln else None, out_f=out_f,
+        out_h=None if epi == mdm_cuda.EPI_STORE else out_h, ca=ca, cb=cb, tile=tile)
+    torch.cuda.synchronize()
+    to_h = epi in (mdm_cuda.EPI_BIAS_BF16, mdm_cuda.EPI_BIAS_GELU_BF16)
+    out = out_h.float() if to_h else out_f
+    if epi in (mdm_cuda.EPI_BIAS_RESIDUAL, mdm_cuda.EPI_DDIM):  # the bf16 copy of the f32 output
+        assert torch.equal(out_h, out_f.to(torch.bfloat16))
+    return (out - ref).abs().max().item(), ref.abs().max().item()
+
+
+GEMM_ATOL = 2e-2  # one bf16 ulp of an output of size ~4 where the epilogue rounds; f32 sums in another order
+
+
+@pytest.mark.parametrize("epi", range(5))
+@pytest.mark.parametrize("a_dtype", [torch.bfloat16, torch.float32], ids=["a_bf16", "a_f32"])
+@pytest.mark.parametrize("m", [1, 160, 257])
+def test_gemm_matches_reference_at_ragged_shapes(dev, m, a_dtype, epi):
+    err, _ = gemm_case(dev, m, 136, 200, a_dtype, epi)
+    assert err < GEMM_ATOL
+
+
+@pytest.mark.parametrize("tile,a_dtype", [(t, torch.bfloat16) for t in (1032, 1064, 1128, 2128)]
+                         + [(t, torch.float32) for t in (1064, 1128)])  # an f32 A takes one warpgroup
+def test_gemm_every_tile(dev, tile, a_dtype):
+    err, _ = gemm_case(dev, 300, 256, 512, a_dtype, mdm_cuda.EPI_STORE, tile=tile)
+    assert err < 1e-3  # f32 out: only the order of the f32 sums differs
+
+
+@pytest.mark.parametrize("m,k", [(256, 512), (77, 256), (8192, 512)])
+@pytest.mark.parametrize("tile", [0, 1064, 1128])
+def test_gemm_layernorm_fold(dev, m, k, tile):
+    # the kernel's LayerNorm and PyTorch's differ by f32 rounding before the bf16 rounding of A, so an
+    # element here and there rounds the other way: one bf16 ulp of a value ~4, times a weight ~1/sqrt(k)
+    err, _ = gemm_case(dev, m, 512, k, torch.float32, mdm_cuda.EPI_STORE, ln=True, tile=tile)
+    assert err < 5e-3
+
+
+@pytest.mark.parametrize("b,t,d,heads", [(3, 32, 256, 4), (2, 20, 512, 4), (70, 32, 256, 4)])
+def test_attention_matches_plain_softmax(dev, b, t, d, heads):
+    g = torch.Generator(dev).manual_seed(6)
+    qkv = torch.randn(b * t, 3 * d, device=dev, generator=g)
+    out = torch.zeros(b * t, d, dtype=torch.bfloat16, device=dev)
+    mdm_cuda._Launcher("block_stack", dev).attention(qkv, out, b, t, d, heads)
+    torch.cuda.synchronize()
+    hd = d // heads
+    q, k, v = (qkv.reshape(b, t, 3, heads, hd)[:, :, i].transpose(1, 2) for i in range(3))
+    ref = (torch.softmax((q * hd**-0.5) @ k.transpose(-1, -2), dim=-1) @ v).transpose(1, 2).reshape(b * t, d)
+    assert (out.float() - ref).abs().max() < 2e-2  # the bf16 rounding of an output of size ~2
 
 
 def test_kernels_refuse_f32_weights(mdm, dev):

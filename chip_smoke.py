@@ -10,8 +10,8 @@ random weights: once through K1 (``fused_loop=True``) and once through K2,
 both decoding through K3. Before that it times the GEMM of K1 and K2 alone at
 the six shapes of the path, at 256 and 8,192 rows, beside its bound and
 ``torch.matmul`` (a yardstick; the port never calls it), and K2 beside one
-``torch.nn.TransformerEncoder``. Takes about a minute on an H100, the
-~15 s build included. Prints one JSON line per phase, then the ``kernels``
+``torch.nn.TransformerEncoder``. Takes about half a minute on an H100, the
+~5 s build included. Prints one JSON line per phase, then the ``kernels``
 line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
@@ -46,8 +46,6 @@ K3_ATOL, K3_TIE = 1e-4, 1e-5  # quantized atol; top-2 gap below TIE*|r|^2 is a n
 SAMPLER_REL = 5e-2  # bf16 weights and matmul inputs against f32, through 4 windows x 50 steps
 SERVE_BATCH, SERVE_SECONDS = 8, 16.0  # 4 windows, 116 latent frames, 464 output frames
 SERVE_LENGTHS_S = (16.0, 12.5, 9.0, 15.2, 6.3)  # five requests of different lengths
-
-TILES = {256: (1032, 1064), 8192: (1128, 2128)}  # GEMM tiles timed beside the kernel's own choice, by rows
 
 DEV = torch.device("cuda")
 
@@ -139,6 +137,24 @@ def stack_design_bytes(cfg: MDMConfig, b: int, t: int, weight_bytes: int) -> int
     return weight_bytes + cfg.num_layers * per_layer
 
 
+def window_design_bytes(cfg: MDMConfig, b: int, t: int, steps: int, weight_bytes: int, stack_weight_bytes: int) -> int:
+    """Bytes one K1 window moves as designed. Once: the bf16 audio/word
+    features and style rows read, their f32 slabs written. Per step: every
+    weight (an upper count: the 50 MB L2 may keep part of the 38 MB from one
+    step to the next); the stack as in ``stack_design_bytes``, less the first
+    LayerNorm's read of the stream, which the prologue holds in registers;
+    input_process (bf16 state read, bf16 x_emb written), the x slab (x_emb
+    read, f32 written), the prologue (two f32 slabs and the style rows
+    read, the f32 activation written), the last layer's bf16 copy written
+    and read, and the update (f32 state read and written, bf16 copy
+    written)."""
+    d, c, a, rows = cfg.latent_dim, cfg.latent_total_dim, cfg.audio_feat_dim, b * t
+    once = rows * (2 * a + 4 * d) + steps * b * d * (2 + 4)
+    stack = stack_design_bytes(cfg, b, t, stack_weight_bytes) - stack_weight_bytes - rows * 4 * d
+    around = rows * (2 * c + 2 * d + 2 * d + 4 * d + 2 * 4 * d + 4 * d + 2 * 2 * d + 2 * 4 * c + 2 * c) + b * 4 * d
+    return once + steps * (weight_bytes + stack + around)
+
+
 # ---------------------------------------------------------------------------
 # phases
 
@@ -151,10 +167,8 @@ def phase_build() -> None:
 
 def phase_gemm(cfg: MDMConfig) -> None:
     """The GEMM alone at the six (N, K) of the path, at the service's 256
-    rows and at 8,192, each with the epilogue the path gives it, and under
-    each tile of ``TILES``. The two that read a LayerNorm are also timed with it: as the launch of its own that
-    the path uses, and folded into the GEMM (the A mode the path does not
-    use, because it measures slower)."""
+    rows and at 8,192, each with the epilogue the path gives it. The two
+    that read a LayerNorm are also timed with that launch in front."""
     d, f, c = cfg.latent_dim, cfg.ff_size, cfg.latent_total_dim
     E = mdm_cuda
     shapes = [  # name, N, K, reads a LayerNorm, epilogue
@@ -178,23 +192,18 @@ def phase_gemm(cfg: MDMConfig) -> None:
             out_h = torch.zeros(m, n, dtype=torch.bfloat16, device=DEV) if to_h else None
             out = out_h if to_h else out_f
 
-            def launch(a=a, ln=None, tile=0):
+            def launch():
                 E._Launcher("block_stack", DEV, count=False).gemm(
-                    a, w, epi, bias=bias, ln=ln, out_f=out_f, out_h=out_h, ca=0.0, cb=1.0, tile=tile)
-
-            def reference(lhs):
-                ref = lhs.to(torch.bfloat16).float() @ w.float() + bias
-                return torch.nn.functional.gelu(ref) if epi == E.EPI_BIAS_GELU_BF16 else ref
+                    a, w, epi, bias=bias, out_f=out_f, out_h=out_h, ca=0.0, cb=1.0)
 
             launch()  # the residual and DDIM epilogues start from zeros
-            err = rel_err(out.float(), reference(a))
+            ref = a.float() @ w.float() + bias
+            err = rel_err(out.float(), torch.nn.functional.gelu(ref) if epi == E.EPI_BIAS_GELU_BF16 else ref)
             assert err <= K2_REL, (name, m, err)
             moved = nbytes(a, w, bias) + nbytes(out) * (2 if epi in (E.EPI_BIAS_RESIDUAL, E.EPI_DDIM) else 1)
             bms, by = bound_ms(moved, 2.0 * m * n * k)
             entry = {"phase": "gemm", "shape": name, "M": m, "N": n, "K": k, "rel_err": err, "ms": graph_ms(launch),
-                     "bound_ms": bms, "bound_by": by, "library_ms": graph_ms(lambda: torch.matmul(a, w)),
-                     # warpgroups * 1000 + columns: the tiles the kernel's own choice is made among
-                     "ms_by_tile": {tile: graph_ms(lambda: launch(tile=tile)) for tile in TILES[m]}}
+                     "bound_ms": bms, "bound_by": by, "library_ms": graph_ms(lambda: torch.matmul(a, w))}
             if ln:
                 def layernorm():
                     E._Launcher("block_stack", DEV, count=False).layernorm(x, scale, shift, a)
@@ -203,13 +212,7 @@ def phase_gemm(cfg: MDMConfig) -> None:
                     layernorm()
                     launch()
 
-                out.zero_()
-                launch(x, (scale, shift))
-                fold_err = rel_err(out.float(), reference(mdm_cuda._layer_norm(x, scale, shift)))
-                assert fold_err <= K2_REL, (name, m, fold_err)
-                entry.update(layernorm_ms=graph_ms(layernorm), layernorm_then_gemm_ms=graph_ms(separate),
-                             layernorm_folded_ms=graph_ms(lambda: launch(x, (scale, shift))),
-                             layernorm_folded_rel_err=fold_err)
+                entry.update(layernorm_ms=graph_ms(layernorm), layernorm_then_gemm_ms=graph_ms(separate))
             emit(entry)
 
 
@@ -265,7 +268,9 @@ def phase_ddim_window(mdm, cfg: MDMConfig, diffusion) -> dict:
             bf, f32 = window_flops(cfg, b, 32, diffusion.num_steps)
             bms, by = bound_ms(nbytes(*weights, x_init, cond.at_feat, cond.seed_emb) + nbytes(x_init), bf, f32)
             entry.update(ms=cuda_ms(lambda: fused(x_init, cond), 10),
-                         plain_ms=cuda_ms(lambda: fused.plain(x_init, cond), 3), bound_ms=bms, bound_by=by)
+                         plain_ms=cuda_ms(lambda: fused.plain(x_init, cond), 3), bound_ms=bms, bound_by=by,
+                         design_bytes=window_design_bytes(cfg, b, 32, diffusion.num_steps, nbytes(*weights),
+                                                          nbytes(*fused.blocks.values())))
             # a second call with other inputs must see its own inputs, not the graph's stale buffers
             x2 = torch.randn(b, 32, cfg.latent_total_dim, device=DEV, generator=g)
             cond2 = Conditioning(at_feat=torch.randn(b, 32, cfg.audio_feat_dim, device=DEV, generator=g),

@@ -52,32 +52,25 @@
 //     blocks at B = 8, loads K, V and q with 16-byte loads, and at large B
 //     carries four query rows a thread to spare shared-memory bandwidth;
 //   * LayerNorm holds a row in registers (one 16-byte load pass);
-//   * every attribute and TMA descriptor is made on the host outside the
-//     stream (mdm_init, a cache by pointer and shape), so a whole window
-//     can be captured into one CUDA graph and replayed.
+//   * nothing in a launch touches the stream but the kernel: the attributes
+//     are set once in mdm_init, and a TMA descriptor is encoded on the host
+//     (no device work) and travels as a kernel argument, so a whole window
+//     can be captured into one CUDA graph, which then holds its descriptors.
 //
-// The A operand. bf16 activations come through TMA like the weights. Where a
+// The A operand is bf16 and comes through TMA like the weights. Where a
 // kernel of the path reads an f32 tensor that another GEMM wrote, that
 // GEMM's epilogue also writes the bf16 copy: EPI_DDIM for the DDIM state
 // that input_process reads, EPI_BIAS_RESIDUAL for the last layer's stream
-// that the output projection reads. mdm_gemm also takes an f32 A (a_mode 1),
-// optionally with LayerNorm folded in (a_mode 2): the consumer warps load 64
-// whole rows with 16-byte loads, normalise, round to bf16 and write them
-// into the same 128-byte-swizzled layout as one 64 x K panel before the
-// k-loop, and only B streams through the ring. The path does not use the
-// fold: every column tile of a row panel reads and normalises the panel
-// again (24 times for qkv), which measures about 12.4 us against 6.6 us for
-// LayerNorm as its own launch plus the bf16 GEMM at 256 rows, and 154 us
-// against 56 us at 8,192 (H100 80GB HBM3, 700 W; chip_smoke.py prints both).
+// that the output projection reads. LayerNorm is a launch of its own: folded
+// into the GEMM that reads it (the block normalises a 64 x 512 f32 row panel
+// into shared memory, only B streams), every column tile of a row panel
+// read and normalised the panel again, 24 times for qkv, and took about
+// twice the time at 256 rows and 2.7 times at 8,192 (PERF.md has both).
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <map>
-#include <mutex>
-#include <tuple>
 
 typedef __nv_bfloat16 bf16;
 
@@ -87,8 +80,6 @@ constexpr int BK = 64;      // k-block: 64 bf16 = one 128-byte swizzled row
 constexpr int STAGES = 4;   // depth of the TMA ring
 constexpr int MAX_SMEM = 227 * 1024;
 constexpr int ATTN_MAX_SMEM = 160 * 1024;
-constexpr int PANEL_MAX_K = 512;  // widest f32 A: a lane keeps 16 floats of each row it loads
-constexpr int FILL_ROWS = 8;      // rows a warp has in flight while it fills the A panel
 
 enum Epilogue {
   EPI_STORE = 0,           // out_f = acc + bias
@@ -98,21 +89,12 @@ enum Epilogue {
   EPI_DDIM = 4,            // out_f = ca * out_f + cb * (acc + bias); out_h = bf16(out_f) if given
 };
 
-enum AMode {
-  A_BF16 = 0,     // bf16 A through TMA
-  A_F32 = 1,      // f32 A, rounded to bf16 into a shared-memory panel
-  A_F32_LN = 2,   // f32 A, LayerNorm over the row (K = the whole row), then as A_F32
-};
-
 struct GemmArgs {
-  const float* a_f32;
-  const float* ln_scale;
-  const float* ln_shift;
   const float* bias;
   float* out_f;
   bf16* out_h;
   int M, N, K, epi;
-  float eps, ca, cb;
+  float ca, cb;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -280,7 +262,7 @@ struct Wgmma<128> {
 
 // Shared-memory geometry of one instantiation. The A tile of a k-block is
 // BM rows of 128 bytes, 128-byte swizzled (what TMA writes for a 64-wide
-// bf16 box, and what fill_panel writes by hand). A B stage is 64 k-rows of
+// bf16 box). A B stage is 64 k-rows of
 // BN bf16: one 64-byte-swizzled box for BN = 32, one 128-byte-swizzled box
 // for BN = 64, two of them side by side for BN = 128.
 template <int WG, int BN>
@@ -297,102 +279,14 @@ struct Tile {
 };
 
 template <int WG, int BN>
-size_t gemm_smem(int a_mode, int K) {
+constexpr size_t gemm_smem() {
   using T = Tile<WG, BN>;
-  const int nkb = (K + BK - 1) / BK;
-  const size_t a = a_mode == A_BF16 ? (size_t)STAGES * T::A_BLOCK : (size_t)nkb * T::A_BLOCK;
-  return 1024 + a + (size_t)STAGES * T::B_STAGE + 2 * STAGES * sizeof(uint64_t);
+  return 1024 + (size_t)STAGES * (T::A_BLOCK + T::B_STAGE) + 2 * STAGES * sizeof(uint64_t);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Byte offset of elements (r, k .. k+3) in the swizzled A panel.
-template <int BM>
-__device__ __forceinline__ uint32_t panel_offset(int r, int k) {
-  const int kc = k % BK;
-  return (k / BK) * (BM * 128) + r * 128 + (((kc >> 3) ^ (r & 7)) << 4) + (kc & 7) * 2;
-}
-
-// The four consumer warps round 64 rows of the f32 A (LayerNorm first if LN)
-// to bf16 into the panel. One block fills one SM, so what hides the latency
-// of the loads is how many a thread has in flight: a warp starts the 16-byte
-// loads of FILL_ROWS whole rows (K <= 512, four a lane and row) before it
-// touches any, then reduces the rows side by side. Rows past M and columns
-// past K are written as zeros.
-template <bool LN>
-__device__ __forceinline__ void fill_panel(uint8_t* panel, const GemmArgs& g, int m0, int nkb) {
-  constexpr int CH = PANEL_MAX_K / 128;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k4 = g.K / 4, kpad4 = nkb * BK / 4;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int r0 = warp * 16; r0 < warp * 16 + 16; r0 += FILL_ROWS) {
-    float4 v[FILL_ROWS][CH];
-#pragma unroll
-    for (int i = 0; i < FILL_ROWS; ++i) {
-      const int gr = m0 + r0 + i;
-      const float4* src = reinterpret_cast<const float4*>(g.a_f32 + (size_t)gr * g.K);
-#pragma unroll
-      for (int j = 0; j < CH; ++j) v[i][j] = (gr < g.M && lane + 32 * j < k4) ? src[lane + 32 * j] : zero;
-    }
-    float mean[FILL_ROWS], inv[FILL_ROWS];
-    if (LN) {  // two passes over the registers, as layernorm_bf16_kernel does over memory
-#pragma unroll
-      for (int i = 0; i < FILL_ROWS; ++i) {
-        mean[i] = 0.0f;
-#pragma unroll
-        for (int j = 0; j < CH; ++j) mean[i] += (v[i][j].x + v[i][j].y) + (v[i][j].z + v[i][j].w);
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int i = 0; i < FILL_ROWS; ++i) mean[i] += __shfl_xor_sync(0xffffffffu, mean[i], off);
-      }
-#pragma unroll
-      for (int i = 0; i < FILL_ROWS; ++i) {
-        mean[i] /= g.K;
-        inv[i] = 0.0f;
-#pragma unroll
-        for (int j = 0; j < CH; ++j) {
-          if (lane + 32 * j < k4) {
-            const float a = v[i][j].x - mean[i], b = v[i][j].y - mean[i];
-            const float c = v[i][j].z - mean[i], d = v[i][j].w - mean[i];
-            inv[i] += (a * a + b * b) + (c * c + d * d);
-          }
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int i = 0; i < FILL_ROWS; ++i) inv[i] += __shfl_xor_sync(0xffffffffu, inv[i], off);
-      }
-#pragma unroll
-      for (int i = 0; i < FILL_ROWS; ++i) inv[i] = 1.0f / sqrtf(inv[i] / g.K + g.eps);
-    }
-#pragma unroll
-    for (int j = 0; j < CH; ++j) {
-      const int c4 = lane + 32 * j;
-      if (c4 >= kpad4) continue;
-      const bool inside = c4 < k4;
-      float4 sc = make_float4(1.f, 1.f, 1.f, 1.f), sh = zero;
-      if (LN && inside) {
-        sc = reinterpret_cast<const float4*>(g.ln_scale)[c4];
-        sh = reinterpret_cast<const float4*>(g.ln_shift)[c4];
-      }
-#pragma unroll
-      for (int i = 0; i < FILL_ROWS; ++i) {
-        float4 o = v[i][j];  // zeros outside the matrix
-        if (LN && inside && m0 + r0 + i < g.M) {
-          o.x = (o.x - mean[i]) * inv[i] * sc.x + sh.x;
-          o.y = (o.y - mean[i]) * inv[i] * sc.y + sh.y;
-          o.z = (o.z - mean[i]) * inv[i] * sc.z + sh.z;
-          o.w = (o.w - mean[i]) * inv[i] * sc.w + sh.w;
-        }
-        *reinterpret_cast<uint2*>(panel + panel_offset<64>(r0 + i, 4 * c4)) =
-            make_uint2(pack_bf16(o.x, o.y), pack_bf16(o.z, o.w));
-      }
-    }
-  }
 }
 
 // The epilogue of one warpgroup's 64 x BN accumulators. Thread t of the
@@ -473,7 +367,7 @@ __device__ __forceinline__ void epilogue(const float (&d)[BN / 2], const GemmArg
 // bytes), empty[s] when every consumer warpgroup is done reading it. Edges:
 // TMA zero-fills what lies outside the tensors, the epilogue masks rows and
 // columns, so any M, any K and N that are multiples of 8 work.
-template <int WG, int BN, int AMODE>
+template <int WG, int BN>
 __global__ void __launch_bounds__(Tile<WG, BN>::THREADS)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
             const GemmArgs g) {
@@ -482,7 +376,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int nkb = (g.K + BK - 1) / BK;
   uint8_t* a_base = smem;
-  uint8_t* b_base = a_base + (AMODE == A_BF16 ? STAGES : nkb) * T::A_BLOCK;
+  uint8_t* b_base = a_base + STAGES * T::A_BLOCK;
   uint64_t* bars = reinterpret_cast<uint64_t*>(b_base + STAGES * T::B_STAGE);
   const uint32_t full = smem_u32(bars), empty = smem_u32(bars + STAGES);
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * BN;
@@ -499,12 +393,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   if (threadIdx.x >= T::CONSUMERS) {
     // producer: one lane keeps up to STAGES k-blocks in flight
     if (threadIdx.x == T::CONSUMERS) {
-      constexpr uint32_t bytes = T::B_STAGE + (AMODE == A_BF16 ? T::A_BLOCK : 0);
+      constexpr uint32_t bytes = T::A_BLOCK + T::B_STAGE;
       for (int kb = 0; kb < nkb; ++kb) {
         const int s = kb % STAGES;
         mbar_wait(empty + 8 * s, ((kb / STAGES) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, bytes);
-        if (AMODE == A_BF16) tma_load_2d(smem_u32(a_base + s * T::A_BLOCK), &map_a, full + 8 * s, kb * BK, m0);
+        tma_load_2d(smem_u32(a_base + s * T::A_BLOCK), &map_a, full + 8 * s, kb * BK, m0);
 #pragma unroll
         for (int box = 0; box < BN / T::B_BOX_COLS; ++box)
           tma_load_2d(smem_u32(b_base + s * T::B_STAGE + box * T::B_BOX), &map_b, full + 8 * s,
@@ -512,14 +406,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
       }
     }
     return;
-  }
-
-  static_assert(WG == 1 || AMODE == A_BF16, "a block that builds its A panel has one consumer warpgroup");
-  if (AMODE != A_BF16) {
-    fill_panel<AMODE == A_F32_LN>(a_base, g, m0, nkb);
-    // the panel was written through the generic proxy; wgmma reads it through the async one
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    asm volatile("bar.sync 1, %0;" ::"n"(T::CONSUMERS) : "memory");
   }
 
   const int wg = threadIdx.x / 128;
@@ -530,7 +416,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   for (int kb = 0; kb < nkb; ++kb) {
     const int s = kb % STAGES;
     mbar_wait(full + 8 * s, (kb / STAGES) & 1);
-    const uint32_t a_tile = smem_u32(a_base + (AMODE == A_BF16 ? s : kb) * T::A_BLOCK) + wg * 64 * 128;
+    const uint32_t a_tile = smem_u32(a_base + s * T::A_BLOCK) + wg * 64 * 128;
     const uint32_t b_tile = smem_u32(b_base + s * T::B_STAGE);
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
@@ -556,7 +442,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   // The ring is free now: every load has landed and every wgmma of this warpgroup has retired.
   // With two warpgroups the other one may still read the stages that this one's tile goes over.
   if (WG > 1) asm volatile("bar.sync 1, %0;" ::"n"(T::CONSUMERS) : "memory");
-  float* stage = reinterpret_cast<float*>(AMODE == A_BF16 ? a_base : b_base) + wg * 64 * (BN + 8);
+  float* stage = reinterpret_cast<float*>(a_base) + wg * 64 * (BN + 8);
   epilogue<BN>(acc, g, stage, m0 + wg * 64, n0);
 }
 
@@ -788,87 +674,65 @@ EncodeTiled encode_tiled() {
 }
 
 // The descriptor of a row-major bf16 (rows, cols) tensor cut into
-// (box_rows, box_cols) boxes, cached by pointer and shape: the weights and
-// the scratch buffers do not move, so after the first pass every launch
-// finds its descriptors here. Returns false if the encoder refuses.
+// (box_rows, box_cols) boxes. Encoding is host work only (no stream, no
+// allocation), so it is legal under stream capture; the kernel takes the
+// descriptor by value, so a captured launch keeps its own copy. Returns
+// false if the encoder refuses.
 bool tensor_map(CUtensorMap* out, const void* ptr, int rows, int cols, int box_rows, int box_cols,
                 int swizzle) {
-  typedef std::tuple<const void*, int, int, int, int, int> Key;
-  static std::map<Key, CUtensorMap> cache;
-  static std::mutex lock;
-  const Key key(ptr, rows, cols, box_rows, box_cols, swizzle);
-  std::lock_guard<std::mutex> guard(lock);
-  auto hit = cache.find(key);
-  if (hit != cache.end()) {
-    *out = hit->second;
-    return true;
-  }
   EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = encode(
-      out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle == 2 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (res != CUDA_SUCCESS) return false;
-  cache[key] = *out;
-  return true;
+  return encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle == 2 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Tile for a shape. With thousands of rows: 128 x 128, two consumer
-// warpgroups (the widest wgmma this file has, which spares shared-memory
-// bandwidth, and half the A traffic of a 64-row tile). At the service's 256
-// rows the widest of 128 / 64 / 32 columns that still starts a block of 64
-// rows for each of the 132 SMs, else the narrowest (which measures fastest
-// for all six shapes of the path at 256 rows). A block that builds its A
-// panel itself has one warpgroup and repeats that work for every column
-// tile of its rows, so those stay at 64 columns or wider.
-void pick_tile(int M, int N, int a_mode, int* wg, int* bn) {
-  if (a_mode == A_BF16 && N % 128 == 0 && ((M + 127) / 128) * (N / 128) >= 132) {
+template <int WG, int BN>
+cudaError_t launch_gemm(const void* a, const void* b, const GemmArgs& g, cudaStream_t stream) {
+  using T = Tile<WG, BN>;
+  static_assert(gemm_smem<WG, BN>() <= MAX_SMEM, "the ring does not fit in shared memory");
+  CUtensorMap map_a, map_b;
+  if (!tensor_map(&map_a, a, g.M, g.K, T::BM, BK, 1)) return cudaErrorInvalidValue;
+  if (!tensor_map(&map_b, b, g.K, g.N, BK, T::B_BOX_COLS, T::B_SWIZZLE)) return cudaErrorInvalidValue;
+  const dim3 grid((g.N + BN - 1) / BN, (g.M + T::BM - 1) / T::BM);
+  gemm_kernel<WG, BN><<<grid, T::THREADS, gemm_smem<WG, BN>(), stream>>>(map_a, map_b, g);
+  return cudaGetLastError();
+}
+
+template <int WG, int BN>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(gemm_kernel<WG, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              MAX_SMEM);
+}
+
+// Tile for a shape: X(consumer warpgroups, columns) for each that exists.
+// With thousands of rows: 128 x 128, two consumer warpgroups (the widest
+// wgmma this file has, which spares shared-memory bandwidth, and half the A
+// traffic of a 64-row tile). At the service's 256 rows the widest of
+// 128 / 64 / 32 columns that still starts a block of 64 rows for each of the
+// 132 SMs, else the narrowest (which measures fastest for all six shapes of
+// the path at 256 rows).
+#define FOR_EACH_TILE(X) X(1, 32) X(1, 64) X(1, 128) X(2, 128)
+
+void pick_tile(int M, int N, int* wg, int* bn) {
+  if (N % 128 == 0 && ((M + 127) / 128) * (N / 128) >= 132) {
     *wg = 2, *bn = 128;
     return;
   }
-  const int row_tiles = (M + 63) / 64, narrowest = a_mode == A_BF16 ? 32 : 64;
-  *wg = 1, *bn = narrowest;
-  for (int c = 128; c > narrowest; c /= 2) {
+  const int row_tiles = (M + 63) / 64;
+  *wg = 1, *bn = 32;
+  for (int c = 128; c > 32; c /= 2) {
     if ((c < 128 || N % 128 == 0) && row_tiles * ((N + c - 1) / c) >= 132) {
       *bn = c;
       return;
     }
   }
 }
-
-template <int WG, int BN, int AMODE>
-cudaError_t launch_gemm(const void* a, const void* b, const GemmArgs& g, cudaStream_t stream) {
-  using T = Tile<WG, BN>;
-  const size_t smem = gemm_smem<WG, BN>(AMODE, g.K);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  CUtensorMap map_a, map_b;
-  if (!tensor_map(&map_b, b, g.K, g.N, BK, T::B_BOX_COLS, T::B_SWIZZLE)) return cudaErrorInvalidValue;
-  if (AMODE == A_BF16) {
-    if (!tensor_map(&map_a, a, g.M, g.K, T::BM, BK, 1)) return cudaErrorInvalidValue;
-  } else {
-    map_a = map_b;  // not read
-  }
-  const dim3 grid((g.N + BN - 1) / BN, (g.M + T::BM - 1) / T::BM);
-  gemm_kernel<WG, BN, AMODE><<<grid, T::THREADS, smem, stream>>>(map_a, map_b, g);
-  return cudaGetLastError();
-}
-
-template <int WG, int BN, int AMODE>
-cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(gemm_kernel<WG, BN, AMODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              MAX_SMEM);
-}
-
-// every (WG, BN, A mode) that pick_tile or a caller may ask for
-#define FOR_EACH_KERNEL(X)                                                                       \
-  X(1, 32, A_BF16) X(1, 64, A_BF16) X(1, 128, A_BF16) X(2, 128, A_BF16)                         \
-  X(1, 64, A_F32) X(1, 128, A_F32) X(1, 64, A_F32_LN) X(1, 128, A_F32_LN)
 
 }  // namespace
 
@@ -880,8 +744,8 @@ int mdm_init(int device) {
   int current = -1;
   cudaError_t e = cudaGetDevice(&current);
   if (e == cudaSuccess && current != device) e = cudaErrorInvalidDevice;
-#define ALLOW(WG, BN, AMODE) if (e == cudaSuccess) e = allow_smem<WG, BN, AMODE>();
-  FOR_EACH_KERNEL(ALLOW)
+#define ALLOW(WG, BN) if (e == cudaSuccess) e = allow_smem<WG, BN>();
+  FOR_EACH_TILE(ALLOW)
 #undef ALLOW
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(attention_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, ATTN_MAX_SMEM);
@@ -900,41 +764,31 @@ int mdm_layernorm_bf16(const float* x, const float* scale, const float* shift, v
   return (int)cudaGetLastError();
 }
 
-// a_mode: 0 bf16 A, 1 f32 A, 2 f32 A with LayerNorm (ln_scale, ln_shift, eps)
-// over the row; an f32 A is at most 512 wide and takes one-warpgroup tiles.
-// tile: 0 picks by shape, else consumer warpgroups * 1000 + BN.
-int mdm_gemm(const void* a, int a_mode, const void* b, int M, int N, int K, int epi,
-             const float* bias, const float* ln_scale, const float* ln_shift, float eps,
-             float* out_f, void* out_h, float ca, float cb, int tile, void* stream) {
-  if (M < 1 || N % 8 || K % 8 || (a_mode != A_BF16 && K > PANEL_MAX_K)) return (int)cudaErrorInvalidValue;
+// out_f (f32) or out_h (bf16) [M, N] = epilogue(a (bf16) [M, K] @ b (bf16) [K, N]); N and K are
+// multiples of 8 (TMA rows are multiples of 16 bytes).
+int mdm_gemm(const void* a, const void* b, int M, int N, int K, int epi, const float* bias,
+             float* out_f, void* out_h, float ca, float cb, void* stream) {
+  if (M < 1 || N % 8 || K % 8) return (int)cudaErrorInvalidValue;
   GemmArgs g;
-  g.a_f32 = a_mode == A_BF16 ? nullptr : (const float*)a;
-  g.ln_scale = ln_scale, g.ln_shift = ln_shift, g.bias = bias;
-  g.out_f = out_f, g.out_h = (bf16*)out_h;
+  g.bias = bias, g.out_f = out_f, g.out_h = (bf16*)out_h;
   g.M = M, g.N = N, g.K = K, g.epi = epi;
-  g.eps = eps, g.ca = ca, g.cb = cb;
+  g.ca = ca, g.cb = cb;
   int wg, bn;
-  if (tile) {
-    wg = tile / 1000, bn = tile % 1000;
-  } else {
-    pick_tile(M, N, a_mode, &wg, &bn);
-  }
-#define TRY(WG, BN, AMODE) \
-  if (wg == WG && bn == BN && a_mode == AMODE) return (int)launch_gemm<WG, BN, AMODE>(a, b, g, (cudaStream_t)stream);
-  FOR_EACH_KERNEL(TRY)
+  pick_tile(M, N, &wg, &bn);
+#define TRY(WG, BN) \
+  if (wg == WG && bn == BN) return (int)launch_gemm<WG, BN>(a, b, g, (cudaStream_t)stream);
+  FOR_EACH_TILE(TRY)
 #undef TRY
   return (int)cudaErrorInvalidValue;
 }
 
-// rows_per_block: query rows a block takes; 0 picks 8 while that keeps the
-// grid under two waves of the card, else the whole sequence.
+// A block takes 8 query rows while that keeps the grid under two waves of
+// the card, else the whole sequence.
 int mdm_attention(const float* qkv, void* out, int B, int T, int D, int H, float scale,
-                  int rows_per_block, void* stream) {
+                  void* stream) {
   const int hd = D / H;
   if (hd % 4 || D % H) return (int)cudaErrorInvalidValue;
-  int R = rows_per_block;
-  if (R <= 0) R = (long long)B * H * ((T + 7) / 8) <= 2 * 132 ? 8 : T;
-  if (R > T) R = T;
+  const int R = (long long)B * H * ((T + 7) / 8) <= 2 * 132 ? min(8, T) : T;
   const size_t smem = attention_smem(T, hd, R);
   if (smem > ATTN_MAX_SMEM) return (int)cudaErrorInvalidValue;
   const dim3 grid(B * H, (T + R - 1) / R);

@@ -36,11 +36,10 @@ SIGNATURES = {
         "mdm_init": (I,),
         # x, scale, bias, out(bf16), rows, D, eps, stream
         "mdm_layernorm_bf16": (P, P, P, P, I, I, F, P),
-        # A, a_mode, B(bf16), M, N, K, epilogue, bias, ln_scale, ln_shift, eps, out_f32, out_bf16,
-        # ca, cb, tile, stream
-        "mdm_gemm": (P, I, P, I, I, I, I, P, P, P, F, P, P, F, F, I, P),
-        # qkv(f32), out(bf16), B, T, D, H, scale, rows_per_block, stream
-        "mdm_attention": (P, P, I, I, I, I, F, I, P),
+        # A(bf16), B(bf16), M, N, K, epilogue, bias, out_f32, out_bf16, ca, cb, stream
+        "mdm_gemm": (P, P, I, I, I, I, P, P, P, F, F, P),
+        # qkv(f32), out(bf16), B, T, D, H, scale, stream
+        "mdm_attention": (P, P, I, I, I, I, F, P),
         # style_p, xe_p, at_p, bias, cos, sin, act, ln_scale, ln_shift, act_ln(bf16), eps, B, T, D,
         # rope_heads, stream
         "mdm_prologue": (P, P, P, P, P, P, P, P, P, P, F, I, I, I, I, P),

@@ -19,10 +19,12 @@ the next, so where the TPU kernel ran one sequential grid, a layer here is
 seven launches (LayerNorm, the qkv GEMM, attention, the proj GEMM with the
 residual add, LayerNorm, the fc1 GEMM with GELU, the fc2 GEMM with the
 residual add) and a K1 step adds its projections and its prologue, which
-also does the first layer's LayerNorm. The launches of one window (K1) or one pass of the stack (K2) are
-recorded once per (B, T) into a CUDA graph over static buffers and replayed
-for every call: the TPU kernel was one launch a window, and a graph is the
-card's way to that. :func:`window_launches` and :func:`block_launches` give
+also does the first layer's LayerNorm. The launches of one window (K1) or
+one pass of the stack (K2) are recorded once per (B, T) into a CUDA graph
+over static buffers and replayed for every call: the TPU kernel was one
+launch a window, and a graph is the card's way to that. The graphs belong to
+the weights they read: K1's to its :class:`FusedDDIMWindow`, K2's to the
+:class:`StackedWeights` that :func:`stack_block_weights` returns. :func:`window_launches` and :func:`block_launches` give
 the number of kernels a replay runs; ``launches`` counts them under the
 kernel's name. The TPU-only knobs ``tile_samples``, ``attn_group``,
 ``_VMEM_LIMIT`` and the RoPE permutation matrix have no counterpart.
@@ -61,7 +63,16 @@ def _b(linear):
     return linear.bias.detach().float().contiguous()
 
 
-def stack_block_weights(mdm: MDM, weights_dtype=torch.bfloat16) -> dict:
+class StackedWeights(dict):
+    """The dict of :func:`stack_block_weights`, with K2's graphs over these
+    tensors beside it: ``plans`` maps (B, T, heads) to a ``_StackPlan``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.plans = {}
+
+
+def stack_block_weights(mdm: MDM, weights_dtype=torch.bfloat16) -> StackedWeights:
     """The MDM's blocks as one dict of layer-stacked tensors: matmul weights
     (L, in, out) in ``weights_dtype``, LayerNorm parameters and biases
     (L, n) f32. The qkv columns are [q | k | v], each head-major."""
@@ -70,7 +81,7 @@ def stack_block_weights(mdm: MDM, weights_dtype=torch.bfloat16) -> dict:
     def stack(fn):
         return torch.stack([fn(blk) for blk in blocks]).contiguous()
 
-    return {
+    return StackedWeights({
         "ln1_s": stack(lambda b: b.norm1.weight.detach().float()),
         "ln1_b": stack(lambda b: b.norm1.bias.detach().float()),
         "wqkv": stack(lambda b: _w(b.qkv, weights_dtype)),
@@ -82,7 +93,7 @@ def stack_block_weights(mdm: MDM, weights_dtype=torch.bfloat16) -> dict:
         "bfc1": stack(lambda b: _b(b.fc1)),
         "wfc2": stack(lambda b: _w(b.fc2, weights_dtype)),
         "bfc2": stack(lambda b: _b(b.fc2)),
-    }
+    })
 
 
 # ---------------------------------------------------------------------------
@@ -127,10 +138,6 @@ def block_stack_plain(x: torch.Tensor, w: dict, *, num_heads: int) -> torch.Tens
 # kernel launches
 # ---------------------------------------------------------------------------
 
-A_BF16, A_F32, A_F32_LN = range(3)  # how mdm_gemm reads its A operand
-F32_A_MAX_K = 512  # widest f32 A (with or without LayerNorm): the kernel holds its rows in registers
-
-
 def block_launches(num_layers: int) -> int:
     """Kernels one pass of the block stack launches: per layer LayerNorm,
     qkv, attention, proj, LayerNorm, fc1, fc2."""
@@ -145,12 +152,12 @@ def window_launches(num_layers: int, steps: int) -> int:
     return 2 + steps * (4 + block_launches(num_layers) - 1)
 
 
-def check_gemm(a, w, epi, *, bias=None, ln=None, out_f=None, out_h=None):
-    """Raises on what mdm_gemm does not take; returns its A mode."""
+def check_gemm(a, w, epi, *, bias=None, out_f=None, out_h=None):
+    """Raises on what mdm_gemm does not take."""
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"gemm: A {tuple(a.shape)} against W {tuple(w.shape)}")
-    if w.dtype != torch.bfloat16 or a.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"gemm: A {a.dtype} and W {w.dtype}; takes f32 or bf16 A and bf16 W")
+    if w.dtype != torch.bfloat16 or a.dtype != torch.bfloat16:
+        raise ValueError(f"gemm: A {a.dtype} and W {w.dtype}; both operands are bf16")
     m, k = a.shape
     n = w.shape[1]
     if m < 1 or k % 8 or n % 8:
@@ -163,20 +170,11 @@ def check_gemm(a, w, epi, *, bias=None, ln=None, out_f=None, out_h=None):
         raise ValueError(f"gemm: the bf16 copy of the output is ({m}, {n}) bf16")
     if out_h is not None and epi == EPI_STORE:
         raise ValueError("gemm: only the residual and DDIM epilogues write a bf16 copy")
-    vectors = [(bias, n, "bias")] + ([(ln[0], k, "LayerNorm scale"), (ln[1], k, "LayerNorm shift")] if ln else [])
-    for v, size, what in vectors:
-        if v is not None and (v.shape != (size,) or v.dtype != torch.float32):
-            raise ValueError(f"gemm: {what} is f32 ({size},)")
-    for t in (a, w, bias, out_f, out_h, *(ln or ())):
+    if bias is not None and (bias.shape != (n,) or bias.dtype != torch.float32):
+        raise ValueError(f"gemm: bias is f32 ({n},)")
+    for t in (a, w, bias, out_f, out_h):
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16 or t.device != a.device):
             raise ValueError("gemm: operands are contiguous, 16-byte aligned and on one device")
-    if ln is not None and a.dtype != torch.float32:
-        raise ValueError("gemm: the LayerNorm fold takes f32 rows")
-    if a.dtype == torch.float32 and k > F32_A_MAX_K:
-        raise ValueError(f"gemm: an f32 A is at most {F32_A_MAX_K} wide; pass bf16")
-    if a.dtype == torch.bfloat16:
-        return A_BF16
-    return A_F32_LN if ln is not None else A_F32
 
 
 def check_attention(qkv, out, b, t, d, num_heads):
@@ -231,21 +229,17 @@ class _Launcher:
             x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), rows, d, LN_EPS,
             self.stream), "mdm_layernorm_bf16")
 
-    def gemm(self, a, w, epi, *, bias=None, ln=None, out_f=None, out_h=None, ca=0.0, cb=0.0, tile=0):
-        """``ln=(scale, shift)`` normalises the f32 rows of A first.
-        ``tile`` (consumer warpgroups * 1000 + columns) overrides the
-        kernel's own choice; measurements use it."""
-        a_mode = check_gemm(a, w, epi, bias=bias, ln=ln, out_f=out_f, out_h=out_h)
+    def gemm(self, a, w, epi, *, bias=None, out_f=None, out_h=None, ca=0.0, cb=0.0):
+        check_gemm(a, w, epi, bias=bias, out_f=out_f, out_h=out_h)
         (m, k), n = a.shape, w.shape[1]
-        scale, shift = ln if ln else (None, None)
         self._done(self.lib.mdm_gemm(
-            a.data_ptr(), a_mode, w.data_ptr(), m, n, k, epi, _ptr(bias), _ptr(scale), _ptr(shift),
-            LN_EPS, _ptr(out_f), _ptr(out_h), float(ca), float(cb), tile, self.stream), "mdm_gemm")
+            a.data_ptr(), w.data_ptr(), m, n, k, epi, _ptr(bias), _ptr(out_f), _ptr(out_h),
+            float(ca), float(cb), self.stream), "mdm_gemm")
 
     def attention(self, qkv, out, b, t, d, num_heads):
         check_attention(qkv, out, b, t, d, num_heads)
         self._done(self.lib.mdm_attention(
-            qkv.data_ptr(), out.data_ptr(), b, t, d, num_heads, (d // num_heads) ** -0.5, 0,
+            qkv.data_ptr(), out.data_ptr(), b, t, d, num_heads, (d // num_heads) ** -0.5,
             self.stream), "mdm_attention")
 
     def prologue(self, style_p, xe_p, at_p, bias, cos_t, sin_t, act, ln, act_ln, b, t, d, rope_heads):
@@ -293,7 +287,9 @@ class _Replay:
     ``record(launcher)`` makes the launches; it may read and write only
     tensors allocated before this object is built, and must not allocate or
     synchronise. It runs once for real on a side stream (which also fills
-    the kernel library's descriptor cache), then once under capture.
+    the card's caches and loads the kernels), then once under capture, in
+    the thread-local capture mode: other threads (a service's caller that
+    copies the next request to the card) may go on using CUDA meanwhile.
     ``replay()`` runs the graph on the current stream and counts its kernel
     nodes in ``launches[name]``."""
 
@@ -307,7 +303,7 @@ class _Replay:
             record(_Launcher(name, device))
         current.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             recorder = _Launcher(name, device, count=False)  # built on the capture stream
             record(recorder)
         self.nodes = recorder.launched
@@ -320,13 +316,15 @@ class _Replay:
 def _check_cuda(x, w):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if not isinstance(w, StackedWeights):
+        raise TypeError("the CUDA kernels take the StackedWeights of stack_block_weights, which keeps their graphs")
     if w["wqkv"].dtype != torch.bfloat16 or w["wqkv"].device != x.device:
         raise ValueError("the CUDA kernels take bf16 weights on the input's device")
 
 
 class _StackPlan:
-    """K2 for one (B, T) and one set of weights: the static activation and
-    scratch buffers and the graph of the layer loop over them."""
+    """K2 for one (B, T): the static activation and scratch buffers and the
+    graph of the layer loop over them."""
 
     def __init__(self, w, b, t, num_heads, device):
         d, f = w["wqkv"].shape[1], w["wfc1"].shape[-1]
@@ -335,24 +333,17 @@ class _StackPlan:
         self.graph = _Replay("block_stack", device, lambda L: L.blocks(self.x, w, b, t, num_heads, bufs))
 
 
-_stack_plans: dict = {}
-MAX_STACK_PLANS = 8  # graphs kept by block_stack; the oldest goes first
-
-
 def block_stack(x: torch.Tensor, w: dict, *, num_heads: int) -> torch.Tensor:
     """K2: (B, T, D) -> (B, T, D) through the stacked blocks. CPU tensors
     take the plain version; CUDA tensors replay the graph of the kernels'
-    launches, recorded once per (B, T) and set of weights."""
+    launches, recorded once per (B, T) and kept in ``w.plans``."""
     if x.device.type == "cpu":
         return block_stack_plain(x, w, num_heads=num_heads)
     _check_cuda(x, w)
     b, t, d = x.shape
-    key = (b, t, num_heads, str(x.device), *((k, v.data_ptr(), tuple(v.shape)) for k, v in sorted(w.items())))
-    plan = _stack_plans.get(key)
+    plan = w.plans.get((b, t, num_heads))
     if plan is None:
-        if len(_stack_plans) >= MAX_STACK_PLANS:
-            del _stack_plans[next(iter(_stack_plans))]
-        plan = _stack_plans[key] = _StackPlan(w, b, t, num_heads, x.device)
+        plan = w.plans[b, t, num_heads] = _StackPlan(w, b, t, num_heads, x.device)
     plan.x.copy_(x.reshape(b * t, d))
     plan.graph.replay()
     return plan.x.clone().reshape(b, t, d)
@@ -400,7 +391,7 @@ class FusedDDIMWindow:
         a, b = diffusion.ddim_coefficients()
         self.coef_a, self.coef_b = a.tolist(), b.tolist()
         self._rope = {}
-        self._plans = {}  # (B, T, device) -> _WindowPlan
+        self._plans = {}  # (B, T) -> _WindowPlan
 
     def rope_tables(self, t: int, device):
         """(cos, sin) tables (T, hd) f32 for one rope sub-head."""
@@ -447,10 +438,9 @@ class FusedDDIMWindow:
     def _kernel(self, x_init: torch.Tensor, cond: Conditioning) -> torch.Tensor:
         _check_cuda(x_init, self.blocks)
         b, t, at, style = self._inputs(x_init, cond)
-        key = (b, t, str(x_init.device))
-        plan = self._plans.get(key)
+        plan = self._plans.get((b, t))
         if plan is None:
-            plan = self._plans[key] = _WindowPlan(self, b, t, at.shape[-1], x_init.device)
+            plan = self._plans[b, t] = _WindowPlan(self, b, t, at.shape[-1], x_init.device)
         # the call's inputs into the graph's static buffers; the bf16 copies
         # round where the plain version's matmuls round their inputs
         plan.x.copy_(x_init.reshape(plan.x.shape))

@@ -62,7 +62,7 @@ def test_cpu_calls_in_turns_equal_the_plain_versions(mdm):
         assert torch.equal(E.block_stack(x, w, num_heads=SMALL.num_heads),
                            E.block_stack_plain(x, w, num_heads=SMALL.num_heads))
     assert not torch.equal(outs[0], outs[2]) and not torch.equal(outs[1], outs[3])
-    assert E.launches == before and not fused._plans
+    assert E.launches == before and not fused._plans and not w.plans
 
 
 def gemm_operands(m=8, n=16, k=24, a_dtype=torch.bfloat16):
@@ -75,17 +75,23 @@ def check(epi, ops, **override):
     return E.check_gemm(ops.pop("a"), ops.pop("w"), epi, **ops)
 
 
-def test_check_gemm_names_the_a_mode():
-    ln = (torch.ones(24), torch.zeros(24))
-    assert check(E.EPI_BIAS_BF16, gemm_operands()) == E.A_BF16
-    assert check(E.EPI_BIAS_RESIDUAL, gemm_operands(a_dtype=torch.float32)) == E.A_F32
-    assert check(E.EPI_BIAS_GELU_BF16, gemm_operands(a_dtype=torch.float32), ln=ln) == E.A_F32_LN
+@pytest.mark.parametrize("epi,override", [
+    (E.EPI_STORE, dict(out_h=None)),
+    (E.EPI_BIAS_BF16, dict(out_f=None)),
+    (E.EPI_BIAS_GELU_BF16, dict(out_f=None)),
+    (E.EPI_BIAS_RESIDUAL, {}),
+    (E.EPI_BIAS_RESIDUAL, dict(out_h=None)),  # the bf16 copy is optional
+    (E.EPI_DDIM, dict(bias=None)),
+], ids=["store", "bias_bf16", "bias_gelu_bf16", "residual_with_copy", "residual", "ddim_without_bias"])
+def test_check_gemm_takes_what_the_path_launches(epi, override):
+    check(epi, gemm_operands(), **override)
 
 
 @pytest.mark.parametrize("why,epi,ops,override", [
     ("K of A and W differ", E.EPI_STORE, gemm_operands(), dict(w=torch.zeros(32, 16, dtype=torch.bfloat16))),
     ("f32 weights", E.EPI_STORE, gemm_operands(), dict(w=torch.zeros(24, 16))),
-    ("f16 A", E.EPI_STORE, gemm_operands(a_dtype=torch.float16), {}),
+    ("f16 A", E.EPI_STORE, gemm_operands(a_dtype=torch.float16), dict(out_h=None)),
+    ("f32 A", E.EPI_STORE, gemm_operands(a_dtype=torch.float32), dict(out_h=None)),
     ("N not a multiple of 8", E.EPI_BIAS_RESIDUAL, gemm_operands(n=12), dict(out_h=None)),
     ("K not a multiple of 8", E.EPI_BIAS_RESIDUAL, gemm_operands(k=20), dict(out_h=None)),
     ("no f32 output for a residual epilogue", E.EPI_BIAS_RESIDUAL, gemm_operands(), dict(out_f=None)),
@@ -94,10 +100,8 @@ def test_check_gemm_names_the_a_mode():
     ("bf16 copy from the plain store", E.EPI_STORE, gemm_operands(), {}),
     ("bias of another length", E.EPI_BIAS_BF16, gemm_operands(), dict(bias=torch.zeros(8))),
     ("A not contiguous", E.EPI_BIAS_BF16, gemm_operands(), dict(a=torch.zeros(24, 8, dtype=torch.bfloat16).t())),
-    ("LayerNorm of bf16 rows", E.EPI_BIAS_BF16, gemm_operands(), dict(ln=(torch.ones(24), torch.zeros(24)))),
-    ("LayerNorm scale of another length", E.EPI_BIAS_BF16, gemm_operands(a_dtype=torch.float32),
-     dict(ln=(torch.ones(16), torch.zeros(24)))),
-    ("f32 A wider than the kernel holds", E.EPI_BIAS_BF16, gemm_operands(k=E.F32_A_MAX_K + 8, a_dtype=torch.float32), {}),
+    ("bf16 bias", E.EPI_BIAS_BF16, gemm_operands(), dict(bias=torch.zeros(16, dtype=torch.bfloat16))),
+    ("bf16 copy of another shape", E.EPI_DDIM, gemm_operands(), dict(out_h=torch.zeros(8, 24, dtype=torch.bfloat16))),
 ], ids=lambda v: v.replace(" ", "_") if isinstance(v, str) else None)
 def test_check_gemm_raises(why, epi, ops, override):
     with pytest.raises(ValueError, match="gemm"):
@@ -127,3 +131,20 @@ def test_check_cuda_refuses_a_cpu_tensor(mdm):
     w = E.stack_block_weights(mdm)
     with pytest.raises(ValueError, match="unsupported device"):
         E._check_cuda(torch.zeros(1, 32, SMALL.latent_dim), w)
+
+
+def test_stacked_weights_keep_their_graphs_beside_the_tensors(mdm):
+    """K2's graphs live on the weights they read: a new stack starts with
+    none, and holds only tensors as a dict."""
+    w = E.stack_block_weights(mdm)
+    assert isinstance(w, E.StackedWeights) and w.plans == {}
+    assert all(isinstance(v, torch.Tensor) for v in w.values()) and len(w) == 11
+    assert E.stack_block_weights(mdm).plans is not w.plans
+
+
+def test_a_window_starts_without_graphs(mdm):
+    """K1 keeps its graphs on the FusedDDIMWindow and K2's on the stacked
+    weights: both start empty, and building K1 records nothing."""
+    fused = E.FusedDDIMWindow(mdm, make_diffusion(steps=100, timestep_respacing="ddim4"))
+    assert fused._plans == {} and isinstance(fused.blocks, E.StackedWeights)
+    assert fused.blocks.plans == {}  # K1 records its own graph, not K2's

@@ -9,11 +9,11 @@ against its plain PyTorch version on the card at full width, then drives
 random weights: once through K1 (``fused_loop=True``) and once through K2,
 both decoding through K3. Before that it times the GEMM of K1 and K2 alone at
 the six shapes of the path, at 256 and 8,192 rows, beside its bound and
-``torch.matmul`` (a yardstick; the port never calls it), and K2 beside one
-``torch.nn.TransformerEncoder``. Takes about half a minute on an H100, the
-~5 s build included. Prints one JSON line per phase, then the ``kernels``
-line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+``torch.matmul`` (a yardstick; the port never calls it), K2 beside one
+``torch.nn.TransformerEncoder``, and K3 with each of its tiles at three row
+counts. Takes about a minute on an H100, the ~10 s build included.
+Prints one JSON line per phase, then the ``kernels`` line, the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
 """
 
@@ -135,6 +135,21 @@ def stack_design_bytes(cfg: MDMConfig, b: int, t: int, weight_bytes: int) -> int
     d, f, rows = cfg.latent_dim, cfg.ff_size, b * t
     per_layer = rows * (4 * d * 6 + 2 * d * 4 + 4 * 3 * d * 2 + 2 * d * 2 + 2 * f * 2)
     return weight_bytes + cfg.num_layers * per_layer
+
+
+def rvq_design_bytes(n: int, q: int, k: int, d: int) -> int:
+    """Device-memory bytes one K3 call moves as designed. The norms read the
+    codebooks and the rows and write |c|^2, |x|^2 and the emptied keys; from
+    then on the 6 MB of codebooks stay in L2, and so do the chosen codes.
+    Per layer the distance launch reads the residual and |r|^2 once (a row
+    tile's code tiles run side by side) and leaves one key a row; the apply
+    launch reads and empties the key and writes the index, below the last
+    layer reads and writes the residual and writes |r|^2, and at the last
+    layer writes the output."""
+    once = 4 * (q * k * d + n * d) + 4 * q * k + 4 * n + 8 * n
+    distance = 4 * n * d + 4 * n + 8 * n
+    apply = 2 * 8 * n + 4 * n
+    return once + q * (distance + apply) + (q - 1) * (2 * 4 * n * d + 4 * n) + 4 * n * d
 
 
 def window_design_bytes(cfg: MDMConfig, b: int, t: int, steps: int, weight_bytes: int, stack_weight_bytes: int) -> int:
@@ -300,29 +315,72 @@ def near_tie_rows(x: torch.Tensor, codebooks: torch.Tensor, idx: torch.Tensor) -
     return tie
 
 
+def rvq_check(x: torch.Tensor, codebooks: torch.Tensor, out, idx) -> dict:
+    """K3's result against its plain version: equal indices on every row
+    without a near tie, and the output within K3_ATOL where they agree."""
+    ref, ref_idx = quantize_cuda.rvq_encode_plain(x, codebooks)
+    tie = near_tie_rows(x, codebooks, ref_idx)
+    agree = (idx == ref_idx).all(-1)
+    assert bool(agree[~tie].all()), f"K3 indices differ on {int((~agree & ~tie).sum())} rows without a near tie"
+    err = (out - ref)[agree].abs().max().item()
+    assert err <= K3_ATOL, err
+    return dict(near_tie_rows=int(tie.sum()), rows_differing=int((~agree).sum()), max_abs_err=err)
+
+
 def phase_rvq(codebooks: torch.Tensor) -> dict:
     g = torch.Generator(device=DEV).manual_seed(4)
     res = {}
     torch.backends.cuda.matmul.allow_tf32 = False  # near_tie_rows' distances in full f32
+    q, k, d = codebooks.shape
     for n in (SERVE_BATCH * 116, 256 * 116):
-        x = torch.randn(n, codebooks.shape[-1], device=DEV, generator=g)
+        x = torch.randn(n, d, device=DEV, generator=g)
         out, idx = quantize_cuda.rvq_encode_fused(x, codebooks)
-        ref, ref_idx = quantize_cuda.rvq_encode_plain(x, codebooks)
-        torch.cuda.synchronize()
-        tie = near_tie_rows(x, codebooks, ref_idx)
-        agree = (idx == ref_idx).all(-1)
-        assert bool(agree[~tie].all()), f"K3 indices differ on {int((~agree & ~tie).sum())} rows without a near tie"
-        err = (out - ref)[agree].abs().max().item()
-        assert err <= K3_ATOL, err
-        q, k, d = codebooks.shape
-        bms, by = bound_ms(nbytes(x, codebooks, out, idx), fp32_flop=2 * n * q * k * d)
-        entry = dict(rows=n, near_tie_rows=int(tie.sum()), rows_differing=int((~agree).sum()), max_abs_err=err,
-                     ms=cuda_ms(lambda: quantize_cuda.rvq_encode_fused(x, codebooks), 10),
+        entry = rvq_check(x, codebooks, out, idx)
+        out2, idx2 = quantize_cuda.rvq_encode_fused(x, codebooks)
+        assert torch.equal(out, out2) and torch.equal(idx, idx2), "K3 differs between two calls"
+        plan = quantize_cuda.rvq_plan(n, q, k, d)
+        flop = 2 * n * q * k * d
+        bms, by = bound_ms(nbytes(x, codebooks, out, idx), fp32_flop=flop)
+        ms = cuda_ms(lambda: quantize_cuda.rvq_encode_fused(x, codebooks), 10)
+        design = rvq_design_bytes(n, q, k, d)
+        entry.update(rows=n, tile=f"{plan.rows}x{plan.codes}", blocks=plan.blocks, deterministic=True, ms=ms,
                      plain_ms=cuda_ms(lambda: quantize_cuda.rvq_encode_plain(x, codebooks), 10),
-                     bound_ms=bms, bound_by=by)
+                     bound_ms=bms, bound_by=by, fp32_tflops=flop / ms / 1e9, design_bytes=design,
+                     design_ms=1e3 * design / PEAK_BYTES, kernels_per_call=quantize_cuda.rvq_kernel_launches(q))
         res[n] = entry
         emit({"phase": "parity", "kernel": "rvq_encode", "tol": K3_ATOL, **entry})
+    # every code twice: each row's distances tie exactly, and the lower index must win at every layer
+    n = SERVE_BATCH * 116
+    dup = codebooks.clone()
+    dup[:, 1::2] = dup[:, 0::2]
+    x = torch.randn(n, d, device=DEV, generator=g)
+    out, idx = quantize_cuda.rvq_encode_fused(x, dup)
+    assert bool((idx % 2 == 0).all()), "K3 took the higher of two equal codes"
+    entry = rvq_check(x, dup[:, 0::2].contiguous(), out, idx // 2)
+    emit({"phase": "parity", "kernel": "rvq_encode", "case": "every code twice", "rows": n, **entry})
     return res
+
+
+def phase_rvq_tiles(codebooks: torch.Tensor) -> None:
+    """Every tile of K3 that takes the shape, at the serve flush's rows, at
+    B=32 and at the batch-256 knee: ms a call beside the tile rvq_plan picks.
+    Each distance is the same FMA chain under every tile, so every tile's
+    result must equal the picked one's bit for bit."""
+    g = torch.Generator(device=DEV).manual_seed(12)
+    q, k, d = codebooks.shape
+    for n in (SERVE_BATCH * 116, 32 * 116, 256 * 116):
+        x = torch.randn(n, d, device=DEV, generator=g)
+        picked = quantize_cuda.rvq_plan(n, q, k, d)
+        want = quantize_cuda._launch(x, codebooks, picked)
+        ms, blocks = {}, {}
+        for plan in quantize_cuda.rvq_plans(n, q, k, d):
+            name = f"{plan.rows}x{plan.codes}"
+            got = quantize_cuda._launch(x, codebooks, plan)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (n, name)
+            ms[name] = cuda_ms(lambda: quantize_cuda._launch(x, codebooks, plan), 10)
+            blocks[name] = plan.blocks
+        emit({"phase": "rvq_tiles", "rows": n, "picked": f"{picked.rows}x{picked.codes}", "ms": ms,
+              "blocks": blocks})
 
 
 def phase_samplers(mdm, cfg: MDMConfig, diffusion) -> None:
@@ -385,8 +443,10 @@ def device_profile(svc) -> dict:
                       if e.device_type == DeviceType.CUDA), key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     gemms = [k for k in kernels if "gemm_kernel" in k[0]]
+    rvq = [k for k in kernels if "rvq_" in k[0]]
     return {"flush_ms": ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / ms,
             "gemm_mean_us": 1e3 * sum(k[1] for k in gemms) / max(1, sum(k[2] for k in gemms)),
+            "rvq_ms": sum(k[1] for k in rvq), "rvq_kernels": sum(k[2] for k in rvq),
             "top": [{"kernel": k[:80], "ms": t, "calls": c} for k, t, c in kernels[:8]]}
 
 
@@ -404,18 +464,22 @@ def phase_serve(mdm, diffusion, rvq, fused_loop: bool) -> dict:
         assert r.axis_angle.shape == (frames, 165) and r.trans.shape == (frames, 3), r.axis_angle.shape
         assert np.isfinite(r.axis_angle).all() and np.isfinite(r.trans).all()
     path = "ddim_window" if fused_loop else "block_stack"
-    assert counts[path] > 0 and counts["rvq_encode"] > 0, counts
     layers, steps = mdm.cfg.num_layers, diffusion.num_steps
     per_window = mdm_cuda.window_launches(layers, steps) if fused_loop else steps * mdm_cuda.block_launches(layers)
     assert counts[path] == svc.plan.num_windows * per_window, (counts, per_window)
+    assert counts["rvq_encode"] == len(rvq), counts  # one K3 call a body part
     # the service pads every request to the bucket length before featurizing it
     t0 = time.perf_counter()
     onset_amplitude_features(np.resize(requests(7)[0].audio, svc.samples), svc.sr)
     features_ms = 1e3 * (time.perf_counter() - t0)
+    profile = device_profile(svc)
+    rvq_kernels = sum(quantize_cuda.rvq_kernel_launches(module.cfg.quantizer.num_quantizers)
+                      for module, _ in rvq.values())
+    assert profile["rvq_kernels"] == rvq_kernels, (profile["rvq_kernels"], rvq_kernels)
     out = {"phase": "serve", "fused_loop": fused_loop, "requests": len(results), "batch": SERVE_BATCH,
            "windows": svc.plan.num_windows, "frames": frames, "first_flush_ms": cold_ms, "flush_ms": warm_ms,
            "flush_s_host": wall_s, "host_features_ms_per_request": features_ms, "launches": counts,
-           "profile": device_profile(svc)}
+           "profile": profile}
     emit(out)
     return out
 
@@ -437,6 +501,7 @@ def main() -> int:
     k2 = phase_block_stack(mdm, cfg)
     k1 = phase_ddim_window(mdm, cfg, diffusion)
     k3 = phase_rvq(rvq["upper"][1].codebook)
+    phase_rvq_tiles(rvq["upper"][1].codebook)
     phase_samplers(mdm, cfg, diffusion)
     serve_k1 = phase_serve(mdm, diffusion, rvq, fused_loop=True)
     serve_k2 = phase_serve(mdm, diffusion, rvq, fused_loop=False)

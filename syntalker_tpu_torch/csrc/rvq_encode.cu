@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernel for the residual-VQ snap.
+// Hand-written Hopper (sm_90a) kernels for the residual-VQ snap.
 //
 // Replaces _rvq_encode_kernel (built by rvq_encode_fused) of
 // syntalker_tpu/ops/quantize_pallas.py. For each of Q residual layers:
@@ -12,132 +12,282 @@
 // per body part) in FP32 on the CUDA cores, because the argmin must not
 // flip: TF32 or bf16 tensor cores would move distances by more than the gap
 // between the two nearest codes. Its bytes are small (6 MB of codebooks
-// plus the rows), so at 67 TFLOP/s FP32 the operations are the bound.
-// Design: one block of 256 threads owns 32 rows for all Q layers; their
-// residuals stay in shared memory across the layers, so the rows are read
-// from device memory once. The codebook streams through shared memory in
-// chunks of 32 codes (rows padded by one float, so the 32 lanes of a warp,
-// one code each, hit 32 banks); each thread keeps 4 running (distance,
-// index) minima in registers, one per row of its warp, and a warp shuffle
-// reduces them per row. Every distance is a sequential FP32 FMA chain, the
-// exact expression r2 - 2*cross + c2 of the reference.
+// plus the rows), so at 67 TFLOP/s FP32 the operations are the bound. At a
+// few thousand rows a layer is too little work to fill the card for long,
+// and each launch's start and drain weigh as much as its arithmetic.
+//
+// Design: one call is 1 + 2Q launches on the caller's stream, all made here.
+//  - rvq_norms_kernel: |c|^2 of all Q*K codes and |x|^2 of the rows, once,
+//    one warp a vector; it empties every row's argmin key.
+//  - rvq_distance_kernel, per layer: a register-tiled FP32 GEMM of the
+//    residual rows against the codebook, split over both: one block takes
+//    BM rows x BN codes (TILES below; the Python plan picks the tile so that
+//    the grid fills the card). D streams in 32-wide slices through a
+//    cp.async ring, so the next slices load while slice s computes (the
+//    large tile keeps two stages, which leaves room for three blocks an
+//    SM). Shared memory keeps each row and code D-contiguous, padded to 36
+//    floats, so eight consecutive rows or codes sit in eight different
+//    16-byte bank groups. A thread owns TM rows x TN codes (rows ty + i*TY,
+//    codes tx + j*TX); per 4 d it reads TM + TN float4s for 4*TM*TN FMAs,
+//    16 FMAs a shared load for the 8x8 tile. Each distance is one
+//    sequential FMA chain over d, the same under every tile, then
+//    r2 - 2*cross + c2 as the reference writes it.
+//  - The argmin across blocks: each block reduces its codes per row in
+//    registers and with warp shuffles to one 64-bit key (the distance in an
+//    order-preserving high word, negatives included, the code index in the
+//    low word) and takes one atomicMin per row into an (N,) scratch. The
+//    result does not depend on the order of blocks, and the lowest index
+//    wins exact ties.
+//  - rvq_apply_kernel, per layer: one warp a row takes and empties the key
+//    and writes idx[:, q]; below the last layer it writes r = r - code and
+//    the next layer's |r|^2, and at the last layer it sums the chosen codes
+//    into out, so out is written once. It is a launch of its own, so no
+//    distance block reads a residual row that another block of the same
+//    launch writes. Layer 0 reads x and writes the residual scratch; x is
+//    never written.
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include <utility>
 
 namespace {
 
-constexpr int ROWS = 32, CODES = 32, THREADS = 256, ROWS_PER_WARP = ROWS / (THREADS / 32);
+struct Tile {
+  int bm, bn, tm, tn, stages;  // rows and codes a block, rows and codes a thread, stages of the ring
+};
+// ops/quantize_cuda.py::TILES mirrors this table; rvq_plan picks the index.
+constexpr Tile TILES[] = {{32, 32, 4, 4, 3}, {64, 128, 8, 8, 2}};
+constexpr int NUM_TILES = sizeof(TILES) / sizeof(TILES[0]);
+
+constexpr int BK = 32;      // depth of one D slice
+constexpr int LD = BK + 4;  // padded shared row: 9 units of 16 bytes
+constexpr unsigned long long EMPTY = ~0ull;
+constexpr int NORM_THREADS = 256;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
-rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ codebooks,
-                  float* __restrict__ out, int* __restrict__ idx_out, int N, int Q, int K, int D) {
-  extern __shared__ float smem[];
-  float* res = smem;                    // ROWS x D residuals
-  float* cs = res + ROWS * D;           // CODES x (D + 1) codebook chunk
-  float* c2 = cs + CODES * (D + 1);     // CODES code norms
-  float* r2 = c2 + CODES;               // ROWS residual norms
-  int* best = (int*)(r2 + ROWS);        // ROWS chosen codes
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int row0 = blockIdx.x * ROWS;
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-  for (int e = tid; e < ROWS * D; e += THREADS) {
-    const int r = e / D, d = e % D, gr = row0 + r;
-    res[e] = gr < N ? x[(size_t)gr * D + d] : 0.0f;
-    if (gr < N) out[(size_t)gr * D + d] = 0.0f;
+// |v|^2 by one warp: lane-strided float4s, then a shuffle tree, in a fixed order.
+__device__ __forceinline__ float sum_squares(const float* v, int D, int lane) {
+  float s = 0.0f;
+  for (int d = lane * 4; d < D; d += 128) {
+    const float4 a = ld4(v + d);
+    s = fmaf(a.x, a.x, s);
+    s = fmaf(a.y, a.y, s);
+    s = fmaf(a.z, a.z, s);
+    s = fmaf(a.w, a.w, s);
   }
-  __syncthreads();
+  return warp_sum(s);
+}
 
+// The smallest key is the smallest distance and, among equal distances,
+// the lowest code index. The high word orders like the float for either
+// sign; -0 is taken to +0 first, so equal distances give equal high words.
+__device__ __forceinline__ unsigned long long pack_key(float dist, int k) {
+  unsigned u = __float_as_uint(dist + 0.0f);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (unsigned)k;
+}
+
+__global__ void __launch_bounds__(NORM_THREADS)
+rvq_norms_kernel(const float* __restrict__ x, const float* __restrict__ codebooks, float* __restrict__ r2,
+                 float* __restrict__ c2, unsigned long long* __restrict__ keys, int N, int QK, int D) {
+  const int w = (blockIdx.x * NORM_THREADS + threadIdx.x) / 32, lane = threadIdx.x % 32;
+  if (w < QK) {
+    const float s = sum_squares(codebooks + (size_t)w * D, D, lane);
+    if (lane == 0) c2[w] = s;
+  } else if (w < QK + N) {
+    const int row = w - QK;
+    const float s = sum_squares(x + (size_t)row * D, D, lane);
+    if (lane == 0) {
+      r2[row] = s;
+      keys[row] = EMPTY;
+    }
+  }
+}
+
+// One warp a row: below the last layer r = r - code and |r|^2; at the
+// last layer out = C_0[i_0] + C_1[i_1] + ..., added in layer order from
+// zero as the reference adds them. res_in is x at layer 0 and res after
+// it, updated in place: neither pointer is __restrict__.
+__global__ void __launch_bounds__(NORM_THREADS)
+rvq_apply_kernel(const float* res_in, const float* __restrict__ codebooks, float* res, float* __restrict__ out,
+                 int* __restrict__ idx, float* __restrict__ r2, unsigned long long* __restrict__ keys, int N, int Q,
+                 int K, int q, int D) {
+  const int row = (blockIdx.x * NORM_THREADS + threadIdx.x) / 32, lane = threadIdx.x % 32;
+  if (row >= N) return;
+  const int k = (int)(unsigned)keys[row];
+  __syncwarp();  // every lane has read the key before it is emptied
+  if (lane == 0) {
+    keys[row] = EMPTY;
+    idx[(size_t)row * Q + q] = k;
+  }
+  const size_t base = (size_t)row * D;
+  if (q < Q - 1) {
+    const float* code = codebooks + ((size_t)q * K + k) * D;
+    float s = 0.0f;
+    for (int d = lane * 4; d < D; d += 128) {
+      const float4 c = ld4(code + d), r = ld4(res_in + base + d);
+      const float4 n = make_float4(r.x - c.x, r.y - c.y, r.z - c.z, r.w - c.w);
+      *reinterpret_cast<float4*>(res + base + d) = n;
+      s = fmaf(n.x, n.x, s);
+      s = fmaf(n.y, n.y, s);
+      s = fmaf(n.z, n.z, s);
+      s = fmaf(n.w, n.w, s);
+    }
+    s = warp_sum(s);
+    if (lane == 0) r2[row] = s;
+    return;
+  }
+  for (int d = lane * 4; d < D; d += 128) {
+    float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int p = 0; p < Q; ++p) {
+      const int kp = p == q ? k : idx[(size_t)row * Q + p];
+      const float4 c = ld4(codebooks + ((size_t)p * K + kp) * D + d);
+      o = make_float4(o.x + c.x, o.y + c.y, o.z + c.z, o.w + c.w);
+    }
+    *reinterpret_cast<float4*>(out + base + d) = o;
+  }
+}
+
+template <int BM, int BN, int TM, int TN, int STAGES>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+rvq_distance_kernel(const float* __restrict__ res, const float* __restrict__ cb, const float* __restrict__ r2,
+                    const float* __restrict__ c2, unsigned long long* __restrict__ keys, int N, int D) {
+  constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY, STAGE = (BM + BN) * LD;
+  static_assert(THREADS % 32 == 0 && 32 % TX == 0, "a row's threads lie in one warp");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int code0 = blockIdx.x * BN, row0 = blockIdx.y * BM, slices = D / BK;
+
+  auto load = [&](int slice, int stage) {
+    float* rs = smem + stage * STAGE;
+    float* cs = rs + BM * LD;
+    const int d0 = slice * BK;
+    for (int e = tid; e < BM * BK / 4; e += THREADS) {
+      const int r = e / (BK / 4), c = e % (BK / 4), gr = row0 + r;
+      cp_async16(rs + r * LD + c * 4, res + (size_t)min(gr, N - 1) * D + d0 + c * 4, gr < N ? 16 : 0);
+    }
+    for (int e = tid; e < BN * BK / 4; e += THREADS) {
+      const int r = e / (BK / 4), c = e % (BK / 4);
+      cp_async16(cs + r * LD + c * 4, cb + (size_t)(code0 + r) * D + d0 + c * 4, 16);
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < slices) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slices; ++s) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of slice s have landed
+    __syncthreads();              // everyone's have, and slice s-1's stage is free
+    if (s + STAGES - 1 < slices) load(s + STAGES - 1, (s + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const float* rs = smem + (s % STAGES) * STAGE;
+    const float* cs = rs + BM * LD;
+#pragma unroll
+    for (int k4 = 0; k4 < BK / 4; ++k4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(rs + (ty + i * TY) * LD + k4 * 4);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(cs + (tx + j * TX) * LD + k4 * 4);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + ty + i * TY;
+    const float rr = r2[min(row, N - 1)];
+    unsigned long long best = EMPTY;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int k = code0 + tx + j * TX;
+      const float dist = rr - 2.0f * acc[i][j] + c2[k];
+      best = min(best, pack_key(dist, k));
+    }
+#pragma unroll
+    for (int off = TX / 2; off > 0; off >>= 1) best = min(best, __shfl_xor_sync(0xffffffffu, best, off));
+    if (tx == 0 && row < N) atomicMin(keys + row, best);
+  }
+}
+
+template <int T>
+int encode(const float* x, const float* codebooks, float* out, int* idx, float* res, float* r2, float* c2,
+           unsigned long long* keys, int N, int Q, int K, int D, cudaStream_t stream) {
+  constexpr Tile t = TILES[T];
+  const auto distance = rvq_distance_kernel<t.bm, t.bn, t.tm, t.tn, t.stages>;
+  const int smem = t.stages * (t.bm + t.bn) * LD * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(distance, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(K / t.bn, (N + t.bm - 1) / t.bm);
+  const int warps_per_block = NORM_THREADS / 32, row_blocks = (N + warps_per_block - 1) / warps_per_block;
+  rvq_norms_kernel<<<(Q * K + N + warps_per_block - 1) / warps_per_block, NORM_THREADS, 0, stream>>>(
+      x, codebooks, r2, c2, keys, N, Q * K, D);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   for (int q = 0; q < Q; ++q) {
-    const float* cb = codebooks + (size_t)q * K * D;
-    for (int m = 0; m < ROWS_PER_WARP; ++m) {
-      const int i = warp * ROWS_PER_WARP + m;
-      float s = 0.0f;
-      for (int d = lane; d < D; d += 32) s += res[i * D + d] * res[i * D + d];
-      s = warp_sum(s);
-      if (lane == 0) r2[i] = s;
-    }
-    float bd[ROWS_PER_WARP];
-    int bk[ROWS_PER_WARP];
-    for (int m = 0; m < ROWS_PER_WARP; ++m) {
-      bd[m] = INFINITY;
-      bk[m] = 0;
-    }
-    for (int k0 = 0; k0 < K; k0 += CODES) {
-      __syncthreads();  // the previous chunk is consumed and r2 is written
-      for (int e = tid; e < CODES * D; e += THREADS) {
-        const int j = e / D, d = e % D;
-        cs[j * (D + 1) + d] = k0 + j < K ? cb[(size_t)(k0 + j) * D + d] : 0.0f;
-      }
-      __syncthreads();
-      for (int m = 0; m < CODES / (THREADS / 32); ++m) {
-        const int j = warp * (CODES / (THREADS / 32)) + m;
-        float s = 0.0f;
-        for (int d = lane; d < D; d += 32) s += cs[j * (D + 1) + d] * cs[j * (D + 1) + d];
-        s = warp_sum(s);
-        if (lane == 0) c2[j] = s;
-      }
-      __syncthreads();
-      const int k = k0 + lane;
-      if (k < K) {
-        float cross[ROWS_PER_WARP];
-        for (int m = 0; m < ROWS_PER_WARP; ++m) cross[m] = 0.0f;
-        const float* cr = cs + lane * (D + 1);
-        const float* rr = res + warp * ROWS_PER_WARP * D;
-        for (int d = 0; d < D; ++d) {
-          const float c = cr[d];
-          for (int m = 0; m < ROWS_PER_WARP; ++m) cross[m] = fmaf(rr[m * D + d], c, cross[m]);
-        }
-        for (int m = 0; m < ROWS_PER_WARP; ++m) {
-          const float dist = r2[warp * ROWS_PER_WARP + m] - 2.0f * cross[m] + c2[lane];
-          if (dist < bd[m]) {  // codes arrive in ascending order: strict < keeps the lowest
-            bd[m] = dist;
-            bk[m] = k;
-          }
-        }
-      }
-    }
-    for (int m = 0; m < ROWS_PER_WARP; ++m) {
-      float v = bd[m];
-      int k = bk[m];
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int ok = __shfl_xor_sync(0xffffffffu, k, off);
-        if (ov < v || (ov == v && ok < k)) {
-          v = ov;
-          k = ok;
-        }
-      }
-      if (lane == 0) best[warp * ROWS_PER_WARP + m] = k;
-    }
-    __syncthreads();
-    for (int e = tid; e < ROWS * D; e += THREADS) {
-      const int r = e / D, d = e % D, gr = row0 + r;
-      if (gr >= N) continue;
-      const float code = cb[(size_t)best[r] * D + d];
-      res[e] -= code;
-      out[(size_t)gr * D + d] += code;
-    }
-    if (tid < ROWS && row0 + tid < N) idx_out[(size_t)(row0 + tid) * Q + q] = best[tid];
-    __syncthreads();
+    const float* r = q == 0 ? x : res;
+    distance<<<grid, (t.bm / t.tm) * (t.bn / t.tn), smem, stream>>>(r, codebooks + (size_t)q * K * D, r2,
+                                                                    c2 + (size_t)q * K, keys, N, D);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    rvq_apply_kernel<<<row_blocks, NORM_THREADS, 0, stream>>>(r, codebooks, res, out, idx, r2, keys, N, Q, K, q, D);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
+  return 0;
+}
+
+template <int... T>
+int encode_tile(int tile, std::integer_sequence<int, T...>, const float* x, const float* codebooks, float* out,
+                int* idx, float* res, float* r2, float* c2, unsigned long long* keys, int N, int Q, int K, int D,
+                cudaStream_t stream) {
+  int rc = (int)cudaErrorInvalidValue;
+  ((tile == T ? (rc = encode<T>(x, codebooks, out, idx, res, r2, c2, keys, N, Q, K, D, stream)) : 0), ...);
+  return rc;
 }
 
 }  // namespace
 
-extern "C" int rvq_encode(const float* x, const float* codebooks, float* out, int* idx, int N,
-                          int Q, int K, int D, void* stream) {
-  const size_t smem =
-      (size_t)(ROWS * D + CODES * (D + 1) + CODES + ROWS) * sizeof(float) + ROWS * sizeof(int);
-  const cudaError_t e = cudaFuncSetAttribute(
-      rvq_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  rvq_encode_kernel<<<(N + ROWS - 1) / ROWS, THREADS, smem, (cudaStream_t)stream>>>(
-      x, codebooks, out, idx, N, Q, K, D);
-  return (int)cudaGetLastError();
+// x (N, D), codebooks (Q, K, D) -> out (N, D), idx (N, Q), through
+// TILES[tile]. Scratch from the caller: res (N, D), r2 (N,), c2 (Q, K) f32
+// and keys (N,) 64-bit. The shape rules are rvq_plan's in
+// ops/quantize_cuda.py; a shape outside them returns cudaErrorInvalidValue
+// before any launch.
+extern "C" int rvq_encode(const float* x, const float* codebooks, float* out, int* idx, float* res, float* r2,
+                          float* c2, unsigned long long* keys, int N, int Q, int K, int D, int tile, void* stream) {
+  if (N < 1 || Q < 1 || D < BK || D % BK != 0 || tile < 0 || tile >= NUM_TILES || K < TILES[tile].bn ||
+      K % TILES[tile].bn != 0 || (N + TILES[tile].bm - 1) / TILES[tile].bm > 65535)
+    return (int)cudaErrorInvalidValue;
+  return encode_tile(tile, std::make_integer_sequence<int, NUM_TILES>{}, x, codebooks, out, idx, res, r2, c2, keys,
+                     N, Q, K, D, (cudaStream_t)stream);
 }

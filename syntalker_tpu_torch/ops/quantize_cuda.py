@@ -1,15 +1,18 @@
-"""K3: the fused residual-VQ snap (hand-written CUDA kernel + plain version).
+"""K3: the fused residual-VQ snap (hand-written CUDA kernels + plain version).
 
 Counterpart of ``rvq_encode_fused`` / ``rvq_quantize_eval_fused`` in
-``syntalker_tpu/ops/quantize_pallas.py``; the kernel is
-``csrc/rvq_encode.cu`` (its header says what bounds it and how it is laid
-out). The wrapper takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors, counting each launch in ``launches``. The TPU
-kernel's ``tile_n`` has no counterpart: the CUDA kernel fixes its own
-32-row tiles and masks the ragged edge.
+``syntalker_tpu/ops/quantize_pallas.py``; the kernels are
+``csrc/rvq_encode.cu`` (its header says what bounds them and how they are
+laid out). The wrapper takes the plain version for CPU tensors and launches
+the kernels for CUDA tensors: one C call launches all
+:func:`rvq_kernel_launches` kernels of the call, and ``launches`` counts the
+calls. The TPU kernel's ``tile_n`` has no counterpart: :func:`rvq_plan`
+picks a tile of rows x codes from the shape.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -18,6 +21,13 @@ from syntalker_tpu_torch.ops import _build
 from syntalker_tpu_torch.ops.quantize import RVQConfig, RVQState
 
 launches = {"rvq_encode": 0}
+
+# (rows, codes) a block, (rows, codes) a thread and the stages of the ring, as TILES in
+# csrc/rvq_encode.cu, smallest first
+TILES = ((32, 32, 4, 4, 3), (64, 128, 8, 8, 2))
+SLICE = 32  # the depth of one D slice in the kernel's ring
+SMS = 132  # streaming multiprocessors of an H100 SXM
+MAX_ROW_TILES = 65535  # the grid's y limit
 
 
 def rvq_encode_plain(x: torch.Tensor, codebooks: torch.Tensor):
@@ -38,27 +48,91 @@ def rvq_encode_plain(x: torch.Tensor, codebooks: torch.Tensor):
     return out, torch.stack(idx, -1).to(torch.int32)
 
 
+@dataclass(frozen=True)
+class RVQPlan:
+    """The distance launch of one layer: TILES[tile], and its grid of (code
+    tiles, row tiles)."""
+
+    tile: int
+    rows: int
+    codes: int
+    grid: tuple[int, int]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def rvq_plans(n: int, q: int, k: int, d: int) -> list[RVQPlan]:
+    """A plan for every tile that takes the shape, smallest tile first.
+    Raises ValueError on a shape that no tile takes."""
+    if n < 1 or q < 1 or d < SLICE or d % SLICE:
+        raise ValueError(f"rvq_plan: rows {n}, layers {q}, width {d}: needs N, Q >= 1 and D a multiple of {SLICE}")
+    plans = []
+    for tile, (bm, bn, *_) in enumerate(TILES):
+        grid = (k // bn, -(-n // bm))
+        if k >= bn and k % bn == 0 and grid[1] <= MAX_ROW_TILES:
+            plans.append(RVQPlan(tile, bm, bn, grid))
+    if not plans:
+        raise ValueError(f"rvq_plan: {k} codes x {n} rows fit no tile {TILES}")
+    return plans
+
+
+def rvq_plan(n: int, q: int, k: int, d: int) -> RVQPlan:
+    """The tile for N rows against Q codebooks of K codes of width D: the
+    largest that still gives every SM a block, else the one with the most
+    blocks. Raises ValueError on a shape the kernels do not take."""
+    plans = rvq_plans(n, q, k, d)
+    full = [p for p in plans if p.blocks >= SMS]
+    return full[-1] if full else max(plans, key=lambda p: p.blocks)
+
+
+def rvq_kernel_launches(q: int) -> int:
+    """Kernels one call launches: the norms, then a distance and an apply
+    launch a layer."""
+    return 1 + 2 * q
+
+
+def check_rvq(x: torch.Tensor, codebooks: torch.Tensor) -> RVQPlan:
+    """Raise ValueError unless the kernels take these operands; return the
+    plan."""
+    if x.dim() != 2 or codebooks.dim() != 3 or codebooks.shape[-1] != x.shape[-1]:
+        raise ValueError(f"rvq_encode: rows {tuple(x.shape)} vs codebooks {tuple(codebooks.shape)}")
+    if x.device != codebooks.device:
+        raise ValueError(f"rvq_encode: rows on {x.device}, codebooks on {codebooks.device}")
+    for name, t in (("rows", x), ("codebooks", codebooks)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"rvq_encode: {name} must be contiguous 16-byte-aligned f32, got {t.dtype}")
+    q, k, d = codebooks.shape
+    return rvq_plan(x.shape[0], q, k, d)
+
+
 def rvq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor):
     """(N, D) rows, (Q, K, D) codebooks -> (quantized (N, D) f32, indices
     (N, Q) int32). CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    the kernels."""
     if x.device.type == "cpu":
         return rvq_encode_plain(x, codebooks)
     if x.device.type != "cuda":
         raise ValueError(f"rvq_encode_fused: unsupported device {x.device}")
+    if x.shape[0] == 0:
+        return torch.empty_like(x), torch.empty((0, codebooks.shape[0]), dtype=torch.int32, device=x.device)
+    return _launch(x, codebooks, check_rvq(x, codebooks))
+
+
+def _launch(x: torch.Tensor, codebooks: torch.Tensor, plan: RVQPlan):
     n, d = x.shape
-    q, k, dc = codebooks.shape
-    if dc != d or codebooks.device != x.device:
-        raise ValueError(f"rows {tuple(x.shape)} vs codebooks {tuple(codebooks.shape)} on {codebooks.device}")
-    x = x.float().contiguous()
-    codebooks = codebooks.float().contiguous()
+    q, k, _ = codebooks.shape
     out = torch.empty_like(x)
     idx = torch.empty((n, q), dtype=torch.int32, device=x.device)
-    if n == 0:
-        return out, idx
-    lib = _build.library("rvq_encode")
+    res = torch.empty_like(x)
+    r2 = torch.empty(n, device=x.device)
+    c2 = torch.empty(q, k, device=x.device)
+    keys = torch.empty(n, dtype=torch.int64, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.rvq_encode(x.data_ptr(), codebooks.data_ptr(), out.data_ptr(), idx.data_ptr(), n, q, k, d, stream)
+    err = _build.library("rvq_encode").rvq_encode(
+        x.data_ptr(), codebooks.data_ptr(), out.data_ptr(), idx.data_ptr(), res.data_ptr(), r2.data_ptr(),
+        c2.data_ptr(), keys.data_ptr(), n, q, k, d, plan.tile, stream)
     _build.check(err, "rvq_encode")
     launches["rvq_encode"] += 1
     return out, idx

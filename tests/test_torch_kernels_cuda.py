@@ -202,16 +202,54 @@ def test_kernels_refuse_f32_weights(mdm, dev):
         mdm_cuda.block_stack(torch.zeros(1, 32, SMALL.latent_dim, device=dev), w, num_heads=SMALL.num_heads)
 
 
-@pytest.mark.parametrize("n", [1, 300])
-def test_rvq_encode_kernel_matches_plain(dev, n):
+def rvq_inputs(case, n, q, k, d, dev):
+    """Rows and codebooks for one K3 case: random; every code duplicated
+    (an exact tie at every row and layer, which the lower index must win);
+    or every other row equal to a code of the first layer (a distance near
+    0, which can round below it)."""
     g = torch.Generator(dev).manual_seed(3)
-    cb = torch.randn(6, 512, 512, device=dev, generator=g)
-    x = torch.randn(n, 512, device=dev, generator=g)
+    cb = torch.randn(q, k, d, device=dev, generator=g)
+    x = torch.randn(n, d, device=dev, generator=g)
+    if case == "duplicated_codes":
+        cb[:, 1::2] = cb[:, 0::2]
+    elif case == "rows_on_codes":
+        x[::2] = cb[0, torch.randint(0, k, ((n + 1) // 2,), device=dev, generator=g)]
+    return x, cb
+
+
+def rvq_kernels_in_one_call(x, cb):
+    """The K3 kernels that one call runs on the card, by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        quantize_cuda.rvq_encode_fused(x, cb)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "rvq_" in e.key)
+
+
+@pytest.mark.parametrize("case", ["random", "duplicated_codes", "rows_on_codes"])
+@pytest.mark.parametrize("qkd", [(6, 512, 512), (4, 64, 128)], ids=["6x512x512", "4x64x128"])
+@pytest.mark.parametrize("n", [1, 31, 300, 928, 1001, 4099])  # 4099 rows of 512 codes take the large tile
+def test_rvq_encode_kernel_matches_plain(dev, n, qkd, case):
+    q, k, d = qkd
+    x, cb = rvq_inputs(case, n, q, k, d, dev)
     before = quantize_cuda.launches["rvq_encode"]
     out, idx = quantize_cuda.rvq_encode_fused(x, cb)
     torch.cuda.synchronize()
-    assert quantize_cuda.launches["rvq_encode"] == before + 1
-    ref, ref_idx = quantize_cuda.rvq_encode_plain(x, cb)
+    assert quantize_cuda.launches["rvq_encode"] == before + 1  # one C call a call
+    assert out.shape == (n, d) and idx.shape == (n, q) and idx.dtype == torch.int32
+    if case == "duplicated_codes":
+        assert bool((idx % 2 == 0).all())  # the lower of two equal codes, at every layer
+        ref, ref_idx = quantize_cuda.rvq_encode_plain(x, cb[:, 0::2])
+        ref_idx = 2 * ref_idx
+    else:
+        ref, ref_idx = quantize_cuda.rvq_encode_plain(x, cb)
+    if case == "rows_on_codes":  # the row's own code, whatever the sign of its rounded distance
+        assert torch.equal(cb[0, idx[::2, 0].long()], x[::2])
     agree = (idx == ref_idx).all(-1)
     assert agree.float().mean() > 0.98  # random rows: a near tie may flip one
     assert (out - ref)[agree].abs().max() <= 1e-4
+    out2, idx2 = quantize_cuda.rvq_encode_fused(x, cb)  # no order of blocks shows in the result
+    assert torch.equal(out, out2) and torch.equal(idx, idx2)
+    assert rvq_kernels_in_one_call(x, cb) == quantize_cuda.rvq_kernel_launches(q)

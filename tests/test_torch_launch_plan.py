@@ -1,7 +1,11 @@
-"""What the K1/K2 wrappers decide on the host, checked on the CPU: how many
-kernels a graph replay runs, that repeated CPU calls with other inputs and
-batch sizes equal the plain versions, and that the shape and dtype checks in
-front of the kernels raise on what the kernels do not take."""
+"""What the K1/K2/K3 wrappers decide on the host, checked on the CPU: how
+many kernels a graph replay or a call runs, that repeated CPU calls with
+other inputs and batch sizes equal the plain versions, K3's tile plan, and
+that the shape and dtype checks in front of the kernels raise on what the
+kernels do not take."""
+
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -9,6 +13,7 @@ import torch
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.models.denoiser import Conditioning, MDMConfig, build_mdm
 from syntalker_tpu_torch.ops import mdm_cuda as E
+from syntalker_tpu_torch.ops import quantize_cuda as K3
 
 SMALL = MDMConfig(latent_total_dim=48, latent_dim=64, ff_size=128, num_layers=2, num_heads=4, rope_heads=4,
                   audio_feat_dim=16, word_feat_dim=16, word_embed_dim=8, vocab_size=32)
@@ -148,3 +153,79 @@ def test_a_window_starts_without_graphs(mdm):
     fused = E.FusedDDIMWindow(mdm, make_diffusion(steps=100, timestep_respacing="ddim4"))
     assert fused._plans == {} and isinstance(fused.blocks, E.StackedWeights)
     assert fused.blocks.plans == {}  # K1 records its own graph, not K2's
+
+
+# ---------------------------------------------------------------------------
+# K3: the residual-VQ snap
+
+
+def test_rvq_plan_fills_the_card():
+    serve = K3.rvq_plan(928, 6, 512, 512)  # B=8 x 116 latent frames: one body part of a flush
+    assert serve.blocks >= K3.SMS
+    knee = K3.rvq_plan(29696, 6, 512, 512)  # B=256 x 116
+    assert (knee.rows, knee.codes) == (64, 128) and knee.blocks >= K3.SMS
+
+
+@pytest.mark.parametrize("qkd", [(6, 512, 512), (4, 64, 128)], ids=["6x512x512", "4x64x128"])
+@pytest.mark.parametrize("n", [1, 31, 300, 928, 1001, 4096, 29696])
+def test_rvq_plan_covers_every_row_and_code_once(n, qkd):
+    q, k, d = qkd
+    plan = K3.rvq_plan(n, q, k, d)
+    bm, bn, *_ = K3.TILES[plan.tile]
+    assert (plan.rows, plan.codes) == (bm, bn)
+    rows, codes = torch.zeros(n, dtype=torch.int64), torch.zeros(k, dtype=torch.int64)
+    for by in range(plan.grid[1]):  # a block masks the rows past N
+        rows[by * bm: min(n, (by + 1) * bm)] += 1
+    for bx in range(plan.grid[0]):
+        codes[bx * bn: (bx + 1) * bn] += 1
+    assert bool((rows == 1).all()) and bool((codes == 1).all())
+    assert plan.grid[0] * bn == k and (plan.grid[1] - 1) * bm < n <= plan.grid[1] * bm
+
+
+@pytest.mark.parametrize("why,n,q,k,d", [
+    ("no rows", 0, 6, 512, 512),
+    ("no layers", 8, 0, 512, 512),
+    ("width not a multiple of the slice", 8, 6, 512, 100),
+    ("width under one slice", 8, 6, 512, 16),
+    ("codes not a multiple of any tile", 8, 6, 48, 128),
+    ("fewer codes than any tile", 8, 6, 16, 128),
+    ("more row tiles than the grid holds", 128 * 65535 + 1, 6, 512, 512),
+], ids=lambda v: v.replace(" ", "_") if isinstance(v, str) else None)
+def test_rvq_plan_raises(why, n, q, k, d):
+    with pytest.raises(ValueError, match="rvq_plan"):
+        K3.rvq_plan(n, q, k, d)
+
+
+@pytest.mark.parametrize("q,kernels", [(6, 13), (4, 9), (1, 3)])
+def test_rvq_kernel_launches(q, kernels):
+    assert K3.rvq_kernel_launches(q) == kernels  # the norms, then a distance and an apply launch a layer
+
+
+def test_rvq_tiles_match_the_kernel_source():
+    src = (Path(K3.__file__).resolve().parent.parent / "csrc" / "rvq_encode.cu").read_text()
+    table = re.search(r"constexpr Tile TILES\[\] = \{(.*)\};", src).group(1)
+    tiles = tuple(tuple(int(v) for v in t.split(",")) for t in re.findall(r"\{([^{}]*)\}", table))
+    assert tiles == K3.TILES
+
+
+def rvq_operands(n=40, d=128, dtype=torch.float32):
+    return torch.zeros(n, d, dtype=dtype), torch.zeros(4, 64, d)
+
+
+@pytest.mark.parametrize("why,x,cb", [
+    ("f16 rows", rvq_operands(dtype=torch.float16)[0], rvq_operands()[1]),
+    ("bf16 codebooks", rvq_operands()[0], rvq_operands()[1].to(torch.bfloat16)),
+    ("rows not contiguous", torch.zeros(128, 40).t(), rvq_operands()[1]),
+    ("rows off 16-byte alignment", torch.zeros(40 * 128 + 1)[1:].view(40, 128), rvq_operands()[1]),
+    ("widths differ", rvq_operands(d=96)[0], rvq_operands()[1]),
+    ("rows without a batch dimension", torch.zeros(128), rvq_operands()[1]),
+    ("width the plan refuses", rvq_operands(d=100)[0], torch.zeros(4, 64, 100)),
+], ids=lambda v: v.replace(" ", "_") if isinstance(v, str) else None)
+def test_check_rvq_raises(why, x, cb):
+    with pytest.raises(ValueError, match="rvq_"):
+        K3.check_rvq(x, cb)
+
+
+def test_check_rvq_takes_the_main_path_and_the_tests_shapes():
+    assert K3.check_rvq(*rvq_operands()).tile == 0
+    assert K3.check_rvq(torch.zeros(928, 512), torch.zeros(6, 512, 512)) == K3.rvq_plan(928, 6, 512, 512)

@@ -10,8 +10,8 @@ random weights: once through K1 (``fused_loop=True``) and once through K2,
 both decoding through K3. Before that it times the GEMM of K1 and K2 alone at
 the six shapes of the path, at 256 and 8,192 rows, beside its bound and
 ``torch.matmul`` (a yardstick; the port never calls it), K2 beside one
-``torch.nn.TransformerEncoder``, and K3 with each of its tiles at three row
-counts. Takes about a minute on an H100, the ~10 s build included.
+``torch.nn.TransformerEncoder``, and K3 at the serve flush's rows and at
+the batch-256 knee. Takes about a minute on an H100, the ~10 s build included.
 Prints one JSON line per phase, then the ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
@@ -327,6 +327,19 @@ def rvq_check(x: torch.Tensor, codebooks: torch.Tensor, out, idx) -> dict:
     return dict(near_tie_rows=int(tie.sum()), rows_differing=int((~agree).sum()), max_abs_err=err)
 
 
+def rvq_kernel_us(x: torch.Tensor, codebooks: torch.Tensor) -> dict:
+    """Device µs a launch of each of K3's kernels (norms, distance, apply) in
+    one call, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        quantize_cuda.rvq_encode_fused(x, codebooks)
+        torch.cuda.synchronize()
+    return {e.key.split("rvq_")[1].split("_kernel")[0]: e.self_device_time_total / e.count
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "rvq_" in e.key}
+
+
 def phase_rvq(codebooks: torch.Tensor) -> dict:
     g = torch.Generator(device=DEV).manual_seed(4)
     res = {}
@@ -346,7 +359,8 @@ def phase_rvq(codebooks: torch.Tensor) -> dict:
         entry.update(rows=n, tile=f"{plan.rows}x{plan.codes}", blocks=plan.blocks, deterministic=True, ms=ms,
                      plain_ms=cuda_ms(lambda: quantize_cuda.rvq_encode_plain(x, codebooks), 10),
                      bound_ms=bms, bound_by=by, fp32_tflops=flop / ms / 1e9, design_bytes=design,
-                     design_ms=1e3 * design / PEAK_BYTES, kernels_per_call=quantize_cuda.rvq_kernel_launches(q))
+                     design_ms=1e3 * design / PEAK_BYTES, kernels_per_call=quantize_cuda.rvq_kernel_launches(q),
+                     kernel_us=rvq_kernel_us(x, codebooks))
         res[n] = entry
         emit({"phase": "parity", "kernel": "rvq_encode", "tol": K3_ATOL, **entry})
     # every code twice: each row's distances tie exactly, and the lower index must win at every layer
@@ -359,28 +373,6 @@ def phase_rvq(codebooks: torch.Tensor) -> dict:
     entry = rvq_check(x, dup[:, 0::2].contiguous(), out, idx // 2)
     emit({"phase": "parity", "kernel": "rvq_encode", "case": "every code twice", "rows": n, **entry})
     return res
-
-
-def phase_rvq_tiles(codebooks: torch.Tensor) -> None:
-    """Every tile of K3 that takes the shape, at the serve flush's rows, at
-    B=32 and at the batch-256 knee: ms a call beside the tile rvq_plan picks.
-    Each distance is the same FMA chain under every tile, so every tile's
-    result must equal the picked one's bit for bit."""
-    g = torch.Generator(device=DEV).manual_seed(12)
-    q, k, d = codebooks.shape
-    for n in (SERVE_BATCH * 116, 32 * 116, 256 * 116):
-        x = torch.randn(n, d, device=DEV, generator=g)
-        picked = quantize_cuda.rvq_plan(n, q, k, d)
-        want = quantize_cuda._launch(x, codebooks, picked)
-        ms, blocks = {}, {}
-        for plan in quantize_cuda.rvq_plans(n, q, k, d):
-            name = f"{plan.rows}x{plan.codes}"
-            got = quantize_cuda._launch(x, codebooks, plan)
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (n, name)
-            ms[name] = cuda_ms(lambda: quantize_cuda._launch(x, codebooks, plan), 10)
-            blocks[name] = plan.blocks
-        emit({"phase": "rvq_tiles", "rows": n, "picked": f"{picked.rows}x{picked.codes}", "ms": ms,
-              "blocks": blocks})
 
 
 def phase_samplers(mdm, cfg: MDMConfig, diffusion) -> None:
@@ -473,13 +465,14 @@ def phase_serve(mdm, diffusion, rvq, fused_loop: bool) -> dict:
     onset_amplitude_features(np.resize(requests(7)[0].audio, svc.samples), svc.sr)
     features_ms = 1e3 * (time.perf_counter() - t0)
     profile = device_profile(svc)
+    # K3's wrapper counts C calls; each call launches rvq_kernel_launches(Q) kernels
     rvq_kernels = sum(quantize_cuda.rvq_kernel_launches(module.cfg.quantizer.num_quantizers)
                       for module, _ in rvq.values())
     assert profile["rvq_kernels"] == rvq_kernels, (profile["rvq_kernels"], rvq_kernels)
     out = {"phase": "serve", "fused_loop": fused_loop, "requests": len(results), "batch": SERVE_BATCH,
            "windows": svc.plan.num_windows, "frames": frames, "first_flush_ms": cold_ms, "flush_ms": warm_ms,
            "flush_s_host": wall_s, "host_features_ms_per_request": features_ms, "launches": counts,
-           "profile": profile}
+           "rvq_kernels": rvq_kernels, "profile": profile}
     emit(out)
     return out
 
@@ -501,20 +494,19 @@ def main() -> int:
     k2 = phase_block_stack(mdm, cfg)
     k1 = phase_ddim_window(mdm, cfg, diffusion)
     k3 = phase_rvq(rvq["upper"][1].codebook)
-    phase_rvq_tiles(rvq["upper"][1].codebook)
     phase_samplers(mdm, cfg, diffusion)
     serve_k1 = phase_serve(mdm, diffusion, rvq, fused_loop=True)
     serve_k2 = phase_serve(mdm, diffusion, rvq, fused_loop=False)
 
     src = "syntalker_tpu_torch/csrc/"
     k3_row = k3[SERVE_BATCH * 116]
-    rows = [  # (name, source, TPU kernel, timings, launches on the main path, (error, tolerance))
+    rows = [  # (name, source, TPU kernel, timings, kernels launched on the main path, (error, tolerance))
         ("ddim_window", src + "mdm_block.cu", "syntalker_tpu/ops/mdm_pallas.py:312", k1[SERVE_BATCH],
          serve_k1["launches"]["ddim_window"], {"rel_err": k1[SERVE_BATCH]["rel_err"], "tol": K1_REL}),
         ("block_stack", src + "mdm_block.cu", "syntalker_tpu/ops/mdm_pallas.py:157", k2[SERVE_BATCH],
          serve_k2["launches"]["block_stack"], {"rel_err": k2[SERVE_BATCH]["rel_err"], "tol": K2_REL}),
         ("rvq_encode", src + "rvq_encode.cu", "syntalker_tpu/ops/quantize_pallas.py:33", k3_row,
-         serve_k1["launches"]["rvq_encode"], {"abs_err": k3_row["max_abs_err"], "tol": K3_ATOL}),
+         serve_k1["rvq_kernels"], {"abs_err": k3_row["max_abs_err"], "tol": K3_ATOL}),
     ]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,

@@ -20,18 +20,16 @@
 //  - rvq_norms_kernel: |c|^2 of all Q*K codes and |x|^2 of the rows, once,
 //    one warp a vector; it empties every row's argmin key.
 //  - rvq_distance_kernel, per layer: a register-tiled FP32 GEMM of the
-//    residual rows against the codebook, split over both: one block takes
-//    BM rows x BN codes (TILES below; the Python plan picks the tile so that
-//    the grid fills the card). D streams in 32-wide slices through a
-//    cp.async ring, so the next slices load while slice s computes (the
-//    large tile keeps two stages, which leaves room for three blocks an
-//    SM). Shared memory keeps each row and code D-contiguous, padded to 36
-//    floats, so eight consecutive rows or codes sit in eight different
-//    16-byte bank groups. A thread owns TM rows x TN codes (rows ty + i*TY,
-//    codes tx + j*TX); per 4 d it reads TM + TN float4s for 4*TM*TN FMAs,
-//    16 FMAs a shared load for the 8x8 tile. Each distance is one
-//    sequential FMA chain over d, the same under every tile, then
-//    r2 - 2*cross + c2 as the reference writes it.
+//    residual rows against the codebook, split over both: one block of 64
+//    threads takes 32 rows x 32 codes, so the serve flush's 928 rows make
+//    464 blocks on 132 SMs. D streams in 32-wide slices through a 3-stage
+//    cp.async ring, so the next slices load while slice s computes. Shared
+//    memory keeps each row and code D-contiguous, padded to 36 floats, so
+//    eight consecutive rows or codes sit in eight different 16-byte bank
+//    groups. A thread owns 4 rows x 4 codes (rows ty + i*8, codes tx + j*8);
+//    per 4 d it reads 8 float4s for 64 FMAs, 8 FMAs a shared load. Each
+//    distance is one sequential FMA chain over d, then r2 - 2*cross + c2 as
+//    the reference writes it.
 //  - The argmin across blocks: each block reduces its codes per row in
 //    registers and with warp shuffles to one 64-bit key (the distance in an
 //    order-preserving high word, negatives included, the code index in the
@@ -48,19 +46,14 @@
 
 #include <cuda_runtime.h>
 
-#include <utility>
-
 namespace {
 
-struct Tile {
-  int bm, bn, tm, tn, stages;  // rows and codes a block, rows and codes a thread, stages of the ring
-};
-// ops/quantize_cuda.py::TILES mirrors this table; rvq_plan picks the index.
-constexpr Tile TILES[] = {{32, 32, 4, 4, 3}, {64, 128, 8, 8, 2}};
-constexpr int NUM_TILES = sizeof(TILES) / sizeof(TILES[0]);
-
-constexpr int BK = 32;      // depth of one D slice
-constexpr int LD = BK + 4;  // padded shared row: 9 units of 16 bytes
+constexpr int BM = 32, BN = 32;  // rows and codes a block
+constexpr int TM = 4, TN = 4;    // rows and codes a thread
+constexpr int TX = BN / TN, TY = BM / TM, DIST_THREADS = TX * TY;
+constexpr int STAGES = 3;        // slices in flight in the cp.async ring
+constexpr int BK = 32;           // depth of one D slice
+constexpr int LD = BK + 4;       // padded shared row: 9 units of 16 bytes
 constexpr unsigned long long EMPTY = ~0ull;
 constexpr int NORM_THREADS = 256;
 
@@ -164,12 +157,11 @@ rvq_apply_kernel(const float* res_in, const float* __restrict__ codebooks, float
   }
 }
 
-template <int BM, int BN, int TM, int TN, int STAGES>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+__global__ void __launch_bounds__(DIST_THREADS)
 rvq_distance_kernel(const float* __restrict__ res, const float* __restrict__ cb, const float* __restrict__ r2,
                     const float* __restrict__ c2, unsigned long long* __restrict__ keys, int N, int D) {
-  constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY, STAGE = (BM + BN) * LD;
-  static_assert(THREADS % 32 == 0 && 32 % TX == 0, "a row's threads lie in one warp");
+  constexpr int STAGE = (BM + BN) * LD;
+  static_assert(DIST_THREADS % 32 == 0 && 32 % TX == 0, "a row's threads lie in one warp");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
@@ -179,11 +171,11 @@ rvq_distance_kernel(const float* __restrict__ res, const float* __restrict__ cb,
     float* rs = smem + stage * STAGE;
     float* cs = rs + BM * LD;
     const int d0 = slice * BK;
-    for (int e = tid; e < BM * BK / 4; e += THREADS) {
+    for (int e = tid; e < BM * BK / 4; e += DIST_THREADS) {
       const int r = e / (BK / 4), c = e % (BK / 4), gr = row0 + r;
       cp_async16(rs + r * LD + c * 4, res + (size_t)min(gr, N - 1) * D + d0 + c * 4, gr < N ? 16 : 0);
     }
-    for (int e = tid; e < BN * BK / 4; e += THREADS) {
+    for (int e = tid; e < BN * BK / 4; e += DIST_THREADS) {
       const int r = e / (BK / 4), c = e % (BK / 4);
       cp_async16(cs + r * LD + c * 4, cb + (size_t)(code0 + r) * D + d0 + c * 4, 16);
     }
@@ -243,51 +235,31 @@ rvq_distance_kernel(const float* __restrict__ res, const float* __restrict__ cb,
   }
 }
 
-template <int T>
-int encode(const float* x, const float* codebooks, float* out, int* idx, float* res, float* r2, float* c2,
-           unsigned long long* keys, int N, int Q, int K, int D, cudaStream_t stream) {
-  constexpr Tile t = TILES[T];
-  const auto distance = rvq_distance_kernel<t.bm, t.bn, t.tm, t.tn, t.stages>;
-  const int smem = t.stages * (t.bm + t.bn) * LD * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(distance, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(K / t.bn, (N + t.bm - 1) / t.bm);
+}  // namespace
+
+// x (N, D), codebooks (Q, K, D) -> out (N, D), idx (N, Q). Scratch from the
+// caller: res (N, D), r2 (N,), c2 (Q, K) f32 and keys (N,) 64-bit. The
+// shape rules are rvq_plan's in ops/quantize_cuda.py; a shape outside them
+// returns cudaErrorInvalidValue before any launch.
+extern "C" int rvq_encode(const float* x, const float* codebooks, float* out, int* idx, float* res, float* r2,
+                          float* c2, unsigned long long* keys, int N, int Q, int K, int D, void* stream_) {
+  if (N < 1 || Q < 1 || D < BK || D % BK != 0 || K < BN || K % BN != 0 || (N + BM - 1) / BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t stream = (cudaStream_t)stream_;
+  const int smem = STAGES * (BM + BN) * LD * (int)sizeof(float);  // 27 KB: under the 48 KB default
+  cudaError_t e;
+  const dim3 grid(K / BN, (N + BM - 1) / BM);
   const int warps_per_block = NORM_THREADS / 32, row_blocks = (N + warps_per_block - 1) / warps_per_block;
   rvq_norms_kernel<<<(Q * K + N + warps_per_block - 1) / warps_per_block, NORM_THREADS, 0, stream>>>(
       x, codebooks, r2, c2, keys, N, Q * K, D);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   for (int q = 0; q < Q; ++q) {
     const float* r = q == 0 ? x : res;
-    distance<<<grid, (t.bm / t.tm) * (t.bn / t.tn), smem, stream>>>(r, codebooks + (size_t)q * K * D, r2,
-                                                                    c2 + (size_t)q * K, keys, N, D);
+    rvq_distance_kernel<<<grid, DIST_THREADS, smem, stream>>>(r, codebooks + (size_t)q * K * D, r2,
+                                                              c2 + (size_t)q * K, keys, N, D);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     rvq_apply_kernel<<<row_blocks, NORM_THREADS, 0, stream>>>(r, codebooks, res, out, idx, r2, keys, N, Q, K, q, D);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   return 0;
-}
-
-template <int... T>
-int encode_tile(int tile, std::integer_sequence<int, T...>, const float* x, const float* codebooks, float* out,
-                int* idx, float* res, float* r2, float* c2, unsigned long long* keys, int N, int Q, int K, int D,
-                cudaStream_t stream) {
-  int rc = (int)cudaErrorInvalidValue;
-  ((tile == T ? (rc = encode<T>(x, codebooks, out, idx, res, r2, c2, keys, N, Q, K, D, stream)) : 0), ...);
-  return rc;
-}
-
-}  // namespace
-
-// x (N, D), codebooks (Q, K, D) -> out (N, D), idx (N, Q), through
-// TILES[tile]. Scratch from the caller: res (N, D), r2 (N,), c2 (Q, K) f32
-// and keys (N,) 64-bit. The shape rules are rvq_plan's in
-// ops/quantize_cuda.py; a shape outside them returns cudaErrorInvalidValue
-// before any launch.
-extern "C" int rvq_encode(const float* x, const float* codebooks, float* out, int* idx, float* res, float* r2,
-                          float* c2, unsigned long long* keys, int N, int Q, int K, int D, int tile, void* stream) {
-  if (N < 1 || Q < 1 || D < BK || D % BK != 0 || tile < 0 || tile >= NUM_TILES || K < TILES[tile].bn ||
-      K % TILES[tile].bn != 0 || (N + TILES[tile].bm - 1) / TILES[tile].bm > 65535)
-    return (int)cudaErrorInvalidValue;
-  return encode_tile(tile, std::make_integer_sequence<int, NUM_TILES>{}, x, codebooks, out, idx, res, r2, c2, keys,
-                     N, Q, K, D, (cudaStream_t)stream);
 }

@@ -45,8 +45,8 @@ SIGNATURES = {
         "mdm_prologue": (P, P, P, P, P, P, P, P, P, P, F, I, I, I, I, P),
     },
     "rvq_encode": {
-        # x, codebooks, out, idx, res, r2, c2, keys, N, Q, K, D, tile, stream
-        "rvq_encode": (P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+        # x, codebooks, out, idx, res, r2, c2, keys, N, Q, K, D, stream
+        "rvq_encode": (P, P, P, P, P, P, P, P, I, I, I, I, P),
     },
 }
 

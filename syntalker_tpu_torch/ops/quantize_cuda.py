@@ -6,8 +6,9 @@ Counterpart of ``rvq_encode_fused`` / ``rvq_quantize_eval_fused`` in
 laid out). The wrapper takes the plain version for CPU tensors and launches
 the kernels for CUDA tensors: one C call launches all
 :func:`rvq_kernel_launches` kernels of the call, and ``launches`` counts the
-calls. The TPU kernel's ``tile_n`` has no counterpart: :func:`rvq_plan`
-picks a tile of rows x codes from the shape.
+calls. The TPU kernel's ``tile_n`` has no counterpart: every distance
+launch takes 32 rows x 32 codes a block, and :func:`rvq_plan` gives its
+grid.
 """
 
 from __future__ import annotations
@@ -22,9 +23,7 @@ from syntalker_tpu_torch.ops.quantize import RVQConfig, RVQState
 
 launches = {"rvq_encode": 0}
 
-# (rows, codes) a block, (rows, codes) a thread and the stages of the ring, as TILES in
-# csrc/rvq_encode.cu, smallest first
-TILES = ((32, 32, 4, 4, 3), (64, 128, 8, 8, 2))
+TILE = (32, 32)  # rows and codes a distance block takes, as BM and BN in csrc/rvq_encode.cu
 SLICE = 32  # the depth of one D slice in the kernel's ring
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_ROW_TILES = 65535  # the grid's y limit
@@ -50,10 +49,9 @@ def rvq_encode_plain(x: torch.Tensor, codebooks: torch.Tensor):
 
 @dataclass(frozen=True)
 class RVQPlan:
-    """The distance launch of one layer: TILES[tile], and its grid of (code
-    tiles, row tiles)."""
+    """The distance launch of one layer: a tile of rows x codes a block, and
+    its grid of (code tiles, row tiles)."""
 
-    tile: int
     rows: int
     codes: int
     grid: tuple[int, int]
@@ -63,28 +61,15 @@ class RVQPlan:
         return self.grid[0] * self.grid[1]
 
 
-def rvq_plans(n: int, q: int, k: int, d: int) -> list[RVQPlan]:
-    """A plan for every tile that takes the shape, smallest tile first.
-    Raises ValueError on a shape that no tile takes."""
+def rvq_plan(n: int, q: int, k: int, d: int) -> RVQPlan:
+    """The distance launch for N rows against Q codebooks of K codes of width
+    D. Raises ValueError on a shape the kernels do not take."""
+    bm, bn = TILE
     if n < 1 or q < 1 or d < SLICE or d % SLICE:
         raise ValueError(f"rvq_plan: rows {n}, layers {q}, width {d}: needs N, Q >= 1 and D a multiple of {SLICE}")
-    plans = []
-    for tile, (bm, bn, *_) in enumerate(TILES):
-        grid = (k // bn, -(-n // bm))
-        if k >= bn and k % bn == 0 and grid[1] <= MAX_ROW_TILES:
-            plans.append(RVQPlan(tile, bm, bn, grid))
-    if not plans:
-        raise ValueError(f"rvq_plan: {k} codes x {n} rows fit no tile {TILES}")
-    return plans
-
-
-def rvq_plan(n: int, q: int, k: int, d: int) -> RVQPlan:
-    """The tile for N rows against Q codebooks of K codes of width D: the
-    largest that still gives every SM a block, else the one with the most
-    blocks. Raises ValueError on a shape the kernels do not take."""
-    plans = rvq_plans(n, q, k, d)
-    full = [p for p in plans if p.blocks >= SMS]
-    return full[-1] if full else max(plans, key=lambda p: p.blocks)
+    if k < bn or k % bn or -(-n // bm) > MAX_ROW_TILES:
+        raise ValueError(f"rvq_plan: {k} codes x {n} rows do not fit {bm}x{bn} tiles in the grid")
+    return RVQPlan(bm, bn, (k // bn, -(-n // bm)))
 
 
 def rvq_kernel_launches(q: int) -> int:
@@ -107,20 +92,25 @@ def check_rvq(x: torch.Tensor, codebooks: torch.Tensor) -> RVQPlan:
     return rvq_plan(x.shape[0], q, k, d)
 
 
+def _operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read it: f32, contiguous, 16-byte aligned."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def rvq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor):
-    """(N, D) rows, (Q, K, D) codebooks -> (quantized (N, D) f32, indices
-    (N, Q) int32). CPU tensors take the plain version; CUDA tensors launch
-    the kernels."""
+    """(N, D) rows, (Q, K, D) codebooks of any float dtype and layout ->
+    (quantized (N, D) f32, indices (N, Q) int32). Both are taken to f32 on
+    every device; then CPU tensors take the plain version and CUDA tensors
+    launch the kernels."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rvq_encode_fused: unsupported device {x.device}")
+    x, codebooks = _operand(x), _operand(codebooks)
     if x.device.type == "cpu":
         return rvq_encode_plain(x, codebooks)
-    if x.device.type != "cuda":
-        raise ValueError(f"rvq_encode_fused: unsupported device {x.device}")
     if x.shape[0] == 0:
         return torch.empty_like(x), torch.empty((0, codebooks.shape[0]), dtype=torch.int32, device=x.device)
-    return _launch(x, codebooks, check_rvq(x, codebooks))
-
-
-def _launch(x: torch.Tensor, codebooks: torch.Tensor, plan: RVQPlan):
+    check_rvq(x, codebooks)
     n, d = x.shape
     q, k, _ = codebooks.shape
     out = torch.empty_like(x)
@@ -132,7 +122,7 @@ def _launch(x: torch.Tensor, codebooks: torch.Tensor, plan: RVQPlan):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _build.library("rvq_encode").rvq_encode(
         x.data_ptr(), codebooks.data_ptr(), out.data_ptr(), idx.data_ptr(), res.data_ptr(), r2.data_ptr(),
-        c2.data_ptr(), keys.data_ptr(), n, q, k, d, plan.tile, stream)
+        c2.data_ptr(), keys.data_ptr(), n, q, k, d, stream)
     _build.check(err, "rvq_encode")
     launches["rvq_encode"] += 1
     return out, idx

@@ -205,8 +205,9 @@ def test_kernels_refuse_f32_weights(mdm, dev):
 def rvq_inputs(case, n, q, k, d, dev):
     """Rows and codebooks for one K3 case: random; every code duplicated
     (an exact tie at every row and layer, which the lower index must win);
-    or every other row equal to a code of the first layer (a distance near
-    0, which can round below it)."""
+    every other row equal to a code of the first layer (a distance near 0,
+    which can round below it); or random rows in bf16 or in a strided view,
+    which the wrapper takes as the CPU does."""
     g = torch.Generator(dev).manual_seed(3)
     cb = torch.randn(q, k, d, device=dev, generator=g)
     x = torch.randn(n, d, device=dev, generator=g)
@@ -214,6 +215,10 @@ def rvq_inputs(case, n, q, k, d, dev):
         cb[:, 1::2] = cb[:, 0::2]
     elif case == "rows_on_codes":
         x[::2] = cb[0, torch.randint(0, k, ((n + 1) // 2,), device=dev, generator=g)]
+    elif case == "bf16_rows":
+        x = x.bfloat16()
+    elif case == "strided_rows":
+        x = x.t().contiguous().t()
     return x, cb
 
 
@@ -228,9 +233,9 @@ def rvq_kernels_in_one_call(x, cb):
     return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "rvq_" in e.key)
 
 
-@pytest.mark.parametrize("case", ["random", "duplicated_codes", "rows_on_codes"])
+@pytest.mark.parametrize("case", ["random", "duplicated_codes", "rows_on_codes", "bf16_rows", "strided_rows"])
 @pytest.mark.parametrize("qkd", [(6, 512, 512), (4, 64, 128)], ids=["6x512x512", "4x64x128"])
-@pytest.mark.parametrize("n", [1, 31, 300, 928, 1001, 4099])  # 4099 rows of 512 codes take the large tile
+@pytest.mark.parametrize("n", [1, 31, 300, 928, 1001, 4099])
 def test_rvq_encode_kernel_matches_plain(dev, n, qkd, case):
     q, k, d = qkd
     x, cb = rvq_inputs(case, n, q, k, d, dev)

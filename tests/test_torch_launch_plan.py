@@ -1,11 +1,8 @@
 """What the K1/K2/K3 wrappers decide on the host, checked on the CPU: how
 many kernels a graph replay or a call runs, that repeated CPU calls with
-other inputs and batch sizes equal the plain versions, K3's tile plan, and
-that the shape and dtype checks in front of the kernels raise on what the
-kernels do not take."""
-
-import re
-from pathlib import Path
+other inputs and batch sizes equal the plain versions, K3's grid, that the
+shape and dtype checks in front of the kernels raise on what the kernels do
+not take, and that K3's wrapper takes the same operands on every device."""
 
 import pytest
 import torch
@@ -162,8 +159,9 @@ def test_a_window_starts_without_graphs(mdm):
 def test_rvq_plan_fills_the_card():
     serve = K3.rvq_plan(928, 6, 512, 512)  # B=8 x 116 latent frames: one body part of a flush
     assert serve.blocks >= K3.SMS
+    assert (serve.rows, serve.codes) == K3.TILE and serve.grid == (16, 29)
     knee = K3.rvq_plan(29696, 6, 512, 512)  # B=256 x 116
-    assert (knee.rows, knee.codes) == (64, 128) and knee.blocks >= K3.SMS
+    assert (knee.rows, knee.codes) == K3.TILE and knee.blocks >= K3.SMS
 
 
 @pytest.mark.parametrize("qkd", [(6, 512, 512), (4, 64, 128)], ids=["6x512x512", "4x64x128"])
@@ -171,8 +169,7 @@ def test_rvq_plan_fills_the_card():
 def test_rvq_plan_covers_every_row_and_code_once(n, qkd):
     q, k, d = qkd
     plan = K3.rvq_plan(n, q, k, d)
-    bm, bn, *_ = K3.TILES[plan.tile]
-    assert (plan.rows, plan.codes) == (bm, bn)
+    bm, bn = plan.rows, plan.codes
     rows, codes = torch.zeros(n, dtype=torch.int64), torch.zeros(k, dtype=torch.int64)
     for by in range(plan.grid[1]):  # a block masks the rows past N
         rows[by * bm: min(n, (by + 1) * bm)] += 1
@@ -201,13 +198,6 @@ def test_rvq_kernel_launches(q, kernels):
     assert K3.rvq_kernel_launches(q) == kernels  # the norms, then a distance and an apply launch a layer
 
 
-def test_rvq_tiles_match_the_kernel_source():
-    src = (Path(K3.__file__).resolve().parent.parent / "csrc" / "rvq_encode.cu").read_text()
-    table = re.search(r"constexpr Tile TILES\[\] = \{(.*)\};", src).group(1)
-    tiles = tuple(tuple(int(v) for v in t.split(",")) for t in re.findall(r"\{([^{}]*)\}", table))
-    assert tiles == K3.TILES
-
-
 def rvq_operands(n=40, d=128, dtype=torch.float32):
     return torch.zeros(n, d, dtype=dtype), torch.zeros(4, 64, d)
 
@@ -227,5 +217,32 @@ def test_check_rvq_raises(why, x, cb):
 
 
 def test_check_rvq_takes_the_main_path_and_the_tests_shapes():
-    assert K3.check_rvq(*rvq_operands()).tile == 0
+    assert K3.check_rvq(*rvq_operands()) == K3.rvq_plan(40, 4, 64, 128)
     assert K3.check_rvq(torch.zeros(928, 512), torch.zeros(6, 512, 512)) == K3.rvq_plan(928, 6, 512, 512)
+
+
+def other_operands(why):
+    g = torch.Generator().manual_seed(6)
+    x, cb = torch.randn(40, 128, generator=g), torch.randn(4, 64, 128, generator=g)
+    if why == "bf16 rows":
+        return x.bfloat16(), cb
+    if why == "f16 codebooks":
+        return x, cb.half()
+    if why == "rows not contiguous":
+        return x.t().contiguous().t(), cb
+    return torch.cat([torch.zeros(1), x.flatten()])[1:].view(40, 128), cb  # rows off 16-byte alignment
+
+
+@pytest.mark.parametrize("why", ["bf16 rows", "f16 codebooks", "rows not contiguous", "rows off 16-byte alignment"])
+def test_rvq_encode_takes_the_kernels_operands_on_every_device(why):
+    """The wrapper brings any float dtype and layout to the operands that
+    check_rvq asks the kernels for before it picks a device, so the CPU
+    takes exactly what the card does."""
+    x, cb = other_operands(why)
+    with pytest.raises(ValueError, match="rvq_encode"):
+        K3.check_rvq(x, cb)
+    taken = [K3._operand(t) for t in (x, cb)]
+    assert K3.check_rvq(*taken) == K3.rvq_plan(40, 4, 64, 128)
+    out, idx = K3.rvq_encode_fused(x, cb)
+    ref, ref_idx = K3.rvq_encode_plain(*taken)
+    assert out.dtype == torch.float32 and torch.equal(idx, ref_idx) and torch.equal(out, ref)

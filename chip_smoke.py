@@ -11,7 +11,12 @@ both decoding through K3. Before that it times the GEMM of K1 and K2 alone at
 the six shapes of the path, at 256 and 8,192 rows, beside its bound and
 ``torch.matmul`` (a yardstick; the port never calls it), K2 beside one
 ``torch.nn.TransformerEncoder``, and K3 at the serve flush's rows and at
-the batch-256 knee. Takes about a minute on an H100, the ~10 s build included.
+the batch-256 knee. Last, the prompted body-part CFG path at the width of
+``configs/diffusion_h3d.yaml``'s MDM: the prompted sampler through K2 against
+the same sampler on the plain f32 ``MDM.denoise``, then a service flush that
+mixes unprompted requests (K1) with two prompt configurations (one K2 call a
+step each, the guidance branches stacked), all decoding through K3. Takes
+about a minute and a half on an H100, the ~10 s build included.
 Prints one JSON line per phase, then the ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
@@ -36,6 +41,8 @@ from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
 from syntalker_tpu_torch.ops import _build, mdm_cuda, quantize_cuda
 from syntalker_tpu_torch.serving import MotionGenerationService, MotionRequest
 
+H3D_CONFIG = "configs/diffusion_h3d.yaml"  # the mdm and guidance sections, copied by hand below
+
 # H100 SXM data sheet, dense peaks at the 700 W limit
 PEAK_BF16 = 989e12  # FLOP/s, tensor cores
 PEAK_FP32 = 67e12  # FLOP/s, CUDA cores
@@ -46,6 +53,7 @@ K3_ATOL, K3_TIE = 1e-4, 1e-5  # quantized atol; top-2 gap below TIE*|r|^2 is a n
 SAMPLER_REL = 5e-2  # bf16 weights and matmul inputs against f32, through 4 windows x 50 steps
 SERVE_BATCH, SERVE_SECONDS = 8, 16.0  # 4 windows, 116 latent frames, 464 output frames
 SERVE_LENGTHS_S = (16.0, 12.5, 9.0, 15.2, 6.3)  # five requests of different lengths
+GUIDANCE = {"audio_scale": 1.0, "prompt_scale": 4.0}  # H3D_CONFIG's guidance
 
 DEV = torch.device("cuda")
 
@@ -232,6 +240,10 @@ def phase_gemm(cfg: MDMConfig) -> None:
 
 
 def phase_block_stack(mdm, cfg: MDMConfig) -> dict:
+    """K2 against its plain version and timed: at the service's 8 samples,
+    at the 24, 32 and 40 of the prompted path's 3, 4 and 5 stacked guidance
+    branches (768 to 1,280 rows, where the GEMM takes other tiles), and at
+    the batch-256 knee."""
     w = mdm_cuda.stack_block_weights(mdm)
     g = torch.Generator(device=DEV).manual_seed(2)
     res = {}
@@ -240,7 +252,7 @@ def phase_block_stack(mdm, cfg: MDMConfig) -> dict:
                                              activation="gelu", batch_first=True, norm_first=True)
     encoder = torch.nn.TransformerEncoder(layer, cfg.num_layers, enable_nested_tensor=False)
     encoder = encoder.to(DEV, torch.bfloat16).eval().requires_grad_(False)
-    for b in (8, 256):
+    for b in (SERVE_BATCH, 3 * SERVE_BATCH, 4 * SERVE_BATCH, 5 * SERVE_BATCH, 256):
         x = torch.randn(b, 32, cfg.latent_dim, device=DEV, generator=g)
         out = mdm_cuda.block_stack(x, w, num_heads=cfg.num_heads)
         ref = mdm_cuda.block_stack_plain(x, w, num_heads=cfg.num_heads)
@@ -407,10 +419,28 @@ def requests(seed: int):
     return out
 
 
-def timed_flush(svc, seed: int):
-    """Submit the five requests, flush, and return (results, ms by CUDA
-    events, s by the host clock)."""
-    for req in requests(seed):
+def h3d_config() -> MDMConfig:
+    """H3D_CONFIG's MDM (the port has no YAML loader yet): the default widths
+    (latent 512, 8 blocks, 4 heads, ff 1024, vocab 11195) with the TMR
+    prompt of 256 and the BatchNorm wav encoder."""
+    return MDMConfig(use_prompt=True, prompt_dim=256, audio_norm="batch")
+
+
+def prompted_requests(seed: int):
+    """The five requests of ``requests(seed)``: two unprompted, one with an
+    upper-body prompt, two with hands and lower-body prompts (three groups)."""
+    reqs = requests(seed)
+    rng = np.random.default_rng(seed + 100)
+    for req, parts in zip(reqs[2:], (("upper",), ("hands", "lower"), ("hands", "lower"))):
+        req.prompts = {p: rng.standard_normal(256).astype(np.float32) for p in parts}
+        req.guidance = dict(GUIDANCE)
+    return reqs
+
+
+def timed_flush(svc, reqs):
+    """Submit ``reqs``, flush, and return (results, ms by CUDA events, s by
+    the host clock)."""
+    for req in reqs:
         svc.submit(req)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -422,21 +452,31 @@ def timed_flush(svc, seed: int):
     return results, start.elapsed_time(end), time.perf_counter() - t0
 
 
-def device_profile(svc) -> dict:
+def device_profile(svc, reqs, rvq_kernels: int) -> dict:
     """One more flush under torch.profiler: device time by kernel and the
-    device's busy share of the flush."""
+    device's busy share of the flush. Now and then the profiler drops the
+    records of kernels that ran (seen in the card tests: none of a K3
+    call's kernels in a call whose result was right, and a spin kernel
+    launched beside the call); a profile that does not see the
+    ``rvq_kernels`` K3 kernels the flush launches is taken once more, and
+    ``attempts`` says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, ms, _ = timed_flush(svc, 8)
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, ms, _ = timed_flush(svc, reqs)
+        seen = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "rvq_" in e.key)
+        if seen == rvq_kernels:
+            break
     # device-side kernel rows only: an aten op's row repeats its kernels' time
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA), key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     gemms = [k for k in kernels if "gemm_kernel" in k[0]]
     rvq = [k for k in kernels if "rvq_" in k[0]]
-    return {"flush_ms": ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / ms,
+    return {"attempts": attempt, "flush_ms": ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / ms,
+            "gemm_ms": sum(k[1] for k in gemms), "gemm_calls": sum(k[2] for k in gemms),
             "gemm_mean_us": 1e3 * sum(k[1] for k in gemms) / max(1, sum(k[2] for k in gemms)),
             "rvq_ms": sum(k[1] for k in rvq), "rvq_kernels": sum(k[2] for k in rvq),
             "top": [{"kernel": k[:80], "ms": t, "calls": c} for k, t, c in kernels[:8]]}
@@ -447,9 +487,9 @@ def phase_serve(mdm, diffusion, rvq, fused_loop: bool) -> dict:
                                   max_batch=SERVE_BATCH, max_seconds=SERVE_SECONDS, fused_loop=fused_loop,
                                   device=DEV, seed=5)
     frames = svc.plan.out_latent_frames * svc.plan.squeeze
-    _, cold_ms, _ = timed_flush(svc, 6)  # first use: cuDNN plans, allocator growth
+    _, cold_ms, _ = timed_flush(svc, requests(6))  # first use: cuDNN plans, allocator growth
     reset_launches()
-    results, warm_ms, wall_s = timed_flush(svc, 7)
+    results, warm_ms, wall_s = timed_flush(svc, requests(7))
     counts = {**mdm_cuda.launches, **quantize_cuda.launches}
     assert len(results) == len(SERVE_LENGTHS_S)
     for r in results:
@@ -464,15 +504,111 @@ def phase_serve(mdm, diffusion, rvq, fused_loop: bool) -> dict:
     t0 = time.perf_counter()
     onset_amplitude_features(np.resize(requests(7)[0].audio, svc.samples), svc.sr)
     features_ms = 1e3 * (time.perf_counter() - t0)
-    profile = device_profile(svc)
     # K3's wrapper counts C calls; each call launches rvq_kernel_launches(Q) kernels
     rvq_kernels = sum(quantize_cuda.rvq_kernel_launches(module.cfg.quantizer.num_quantizers)
                       for module, _ in rvq.values())
+    profile = device_profile(svc, requests(8), rvq_kernels)
     assert profile["rvq_kernels"] == rvq_kernels, (profile["rvq_kernels"], rvq_kernels)
     out = {"phase": "serve", "fused_loop": fused_loop, "requests": len(results), "batch": SERVE_BATCH,
            "windows": svc.plan.num_windows, "frames": frames, "first_flush_ms": cold_ms, "flush_ms": warm_ms,
            "flush_s_host": wall_s, "host_features_ms_per_request": features_ms, "launches": counts,
            "rvq_kernels": rvq_kernels, "profile": profile}
+    emit(out)
+    return out
+
+
+def phase_prompted_samplers(mdm, diffusion) -> dict:
+    """The prompted sampler (K2, bf16 weights) against the same sampler on
+    the plain f32 ``MDM.denoise``: 4 windows, 2 clips, prompts on upper and
+    hands, guidance 1/4. Also unguided (no prompts, the styled-only route),
+    which gives the branch error that the guidance then weighs: each part's
+    output is u + s_a·(a − u) + s_p·(p − u), so an error in the branches can
+    grow by up to 1 + 2·prompt_scale = 9 times."""
+    cfg = mdm.cfg
+    plan = G.plan_windows(int(SERVE_SECONDS * 30))
+    g = torch.Generator(device=DEV).manual_seed(12)
+    b = 2
+    aw = torch.rand(plan.num_windows, b, 533 * plan.pose_length, 2, device=DEV, generator=g)
+    ww = torch.randint(0, cfg.vocab_size, (plan.num_windows, b, plan.pose_length), device=DEV, generator=g)
+    seed = torch.zeros(b, plan.pre_frames, cfg.latent_total_dim, device=DEV)
+    noise = G.draw_noise(plan, b, g, DEV)
+    prompts = {p: torch.randn(b, cfg.prompt_dim, device=DEV, generator=g) for p in ("upper", "hands")}
+    kernel = mdm_cuda.make_fused_denoise(mdm, mdm_cuda.stack_block_weights(mdm))
+
+    def plain(x_t, t_emb, cond):
+        return mdm.denoise(x_t, None, cond, t_emb=t_emb)
+
+    def run(denoise, p):
+        return G.sample_windows(mdm, diffusion, plan, aw, ww, seed, noise, sampler="ddim", prompts=p,
+                                guidance=GUIDANCE, denoise=denoise)
+
+    before = mdm_cuda.launches["block_stack"]
+    guided = run(kernel, prompts)
+    k2 = mdm_cuda.launches["block_stack"] - before
+    errs = {"guided": rel_err(guided, run(plain, prompts)), "unguided": rel_err(run(kernel, None), run(plain, None))}
+    amplification = errs["guided"] / errs["unguided"]
+    out = {"phase": "prompted_samplers", "config": H3D_CONFIG, "reference": "sample_windows on MDM.denoise f32",
+           "windows": plan.num_windows, "batch": b, "parts": sorted(prompts), "guidance": GUIDANCE,
+           "branches": 2 + len(prompts), "tol": SAMPLER_REL, "rel_err": errs,
+           "guided_over_unguided": amplification, "amplification_bound": 1 + 2 * GUIDANCE["prompt_scale"],
+           "block_stack_launches": k2}
+    emit(out)
+    # at least one K2 replay a step: the guided run went through the kernel
+    assert k2 >= plan.num_windows * diffusion.num_steps * mdm_cuda.block_launches(cfg.num_layers), k2
+    assert errs["guided"] <= SAMPLER_REL and errs["unguided"] <= SAMPLER_REL, errs
+    return out
+
+
+def phase_serve_prompted(mdm, diffusion, rvq) -> dict:
+    """One service flush of the five ``prompted_requests``: the unprompted
+    group through K1, the upper group (3 branches, 24 samples) and the
+    hands+lower group (4 branches, 32 samples) through one K2 call a step,
+    nine K3 calls. Exact launch counts on the warm flush; each group alone
+    after it, timed by CUDA events, with K2 at its shape held against the
+    plain version; the device's busy share under the profiler."""
+    svc = MotionGenerationService(mdm=mdm, diffusion=diffusion, rvq_modules=rvq, stats=identity_pose_stats(),
+                                  max_batch=SERVE_BATCH, max_seconds=SERVE_SECONDS, fused_loop=True, device=DEV,
+                                  seed=6)
+    frames = svc.plan.out_latent_frames * svc.plan.squeeze
+    _, cold_ms, _ = timed_flush(svc, prompted_requests(6))  # captures K1's graph and K2's at 24 and 32 samples
+    reset_launches()
+    results, warm_ms, wall_s = timed_flush(svc, prompted_requests(7))
+    counts = {**mdm_cuda.launches, **quantize_cuda.launches}
+    assert [r.request_id for r in results] == [f"r{i}" for i in range(len(SERVE_LENGTHS_S))]
+    for r in results:
+        assert r.axis_angle.shape == (frames, 165) and r.trans.shape == (frames, 3), r.axis_angle.shape
+        assert np.isfinite(r.axis_angle).all() and np.isfinite(r.trans).all()
+    layers, steps, windows = mdm.cfg.num_layers, diffusion.num_steps, svc.plan.num_windows
+    want = {"ddim_window": windows * mdm_cuda.window_launches(layers, steps),
+            "block_stack": 2 * windows * steps * mdm_cuda.block_launches(layers), "rvq_encode": 3 * len(rvq)}
+    assert counts == want, (counts, want)
+
+    groups = []
+    reqs = prompted_requests(9)
+    w = mdm_cuda.stack_block_weights(mdm)
+    for name, members in (("unprompted", reqs[:2]), ("upper", reqs[2:3]), ("hands+lower", reqs[3:])):
+        branches = 0 if name == "unprompted" else 2 + len(members[0].prompts)
+        _, ms, _ = timed_flush(svc, members)
+        entry = {"group": name, "requests": len(members), "flush_ms": ms, "branches": branches}
+        if branches:  # K2 at the group's shape on the h3d weights, against its plain version
+            x = torch.randn(branches * SERVE_BATCH, svc.plan.latent_window, mdm.cfg.latent_dim, device=DEV)
+            err = rel_err(mdm_cuda.block_stack(x, w, num_heads=mdm.cfg.num_heads),
+                          mdm_cuda.block_stack_plain(x, w, num_heads=mdm.cfg.num_heads))
+            assert err <= K2_REL, (name, err)
+            entry.update(k2_samples=x.shape[0], k2_rows=x.shape[0] * x.shape[1], k2_rel_err=err, k2_tol=K2_REL,
+                         k2_ms=cuda_ms(lambda: mdm_cuda.block_stack(x, w, num_heads=mdm.cfg.num_heads), 10))
+        groups.append(entry)
+    t0 = time.perf_counter()
+    onset_amplitude_features(np.resize(reqs[0].audio, svc.samples), svc.sr)
+    features_ms = 1e3 * (time.perf_counter() - t0)
+    rvq_kernels = 3 * sum(quantize_cuda.rvq_kernel_launches(module.cfg.quantizer.num_quantizers)
+                          for module, _ in rvq.values())
+    profile = device_profile(svc, prompted_requests(8), rvq_kernels)
+    assert profile["rvq_kernels"] == rvq_kernels, (profile["rvq_kernels"], rvq_kernels)
+    out = {"phase": "serve_prompted", "config": H3D_CONFIG, "requests": len(results), "batch": SERVE_BATCH,
+           "windows": windows, "frames": frames, "first_flush_ms": cold_ms, "flush_ms": warm_ms,
+           "flush_s_host": wall_s, "host_features_ms_per_request": features_ms, "launches": counts,
+           "rvq_kernels": rvq_kernels, "groups": groups, "profile": profile}
     emit(out)
     return out
 
@@ -497,22 +633,30 @@ def main() -> int:
     phase_samplers(mdm, cfg, diffusion)
     serve_k1 = phase_serve(mdm, diffusion, rvq, fused_loop=True)
     serve_k2 = phase_serve(mdm, diffusion, rvq, fused_loop=False)
+    del mdm
+    h3d = build_mdm(h3d_config(), seed=1, device=DEV)
+    phase_prompted_samplers(h3d, diffusion)
+    serve_p = phase_serve_prompted(h3d, diffusion, rvq)
 
     src = "syntalker_tpu_torch/csrc/"
     k3_row = k3[SERVE_BATCH * 116]
-    rows = [  # (name, source, TPU kernel, timings, kernels launched on the main path, (error, tolerance))
+    rows = [  # (name, source, TPU kernel, timings, kernels launched on the main path and on the prompted
+        #         flush, (error, tolerance))
         ("ddim_window", src + "mdm_block.cu", "syntalker_tpu/ops/mdm_pallas.py:312", k1[SERVE_BATCH],
-         serve_k1["launches"]["ddim_window"], {"rel_err": k1[SERVE_BATCH]["rel_err"], "tol": K1_REL}),
+         serve_k1["launches"]["ddim_window"], serve_p["launches"]["ddim_window"],
+         {"rel_err": k1[SERVE_BATCH]["rel_err"], "tol": K1_REL}),
         ("block_stack", src + "mdm_block.cu", "syntalker_tpu/ops/mdm_pallas.py:157", k2[SERVE_BATCH],
-         serve_k2["launches"]["block_stack"], {"rel_err": k2[SERVE_BATCH]["rel_err"], "tol": K2_REL}),
+         serve_k2["launches"]["block_stack"], serve_p["launches"]["block_stack"],
+         {"rel_err": k2[SERVE_BATCH]["rel_err"], "tol": K2_REL}),
         ("rvq_encode", src + "rvq_encode.cu", "syntalker_tpu/ops/quantize_pallas.py:33", k3_row,
-         serve_k1["rvq_kernels"], {"abs_err": k3_row["max_abs_err"], "tol": K3_ATOL}),
+         serve_k1["rvq_kernels"], serve_p["rvq_kernels"], {"abs_err": k3_row["max_abs_err"], "tol": K3_ATOL}),
     ]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "error_vs_tol": err}
-        for name, source, replaces, r, launches, err in rows
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "prompted_flush_launches": prompted,
+         "error_vs_tol": err}
+        for name, source, replaces, r, launches, prompted, err in rows
     ]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -6,11 +6,18 @@ modules, name for name:
 
 - Dense kernel (in, out) -> Linear weight (out, in);
 - Conv kernel (k, in, out) -> Conv1d weight (out, in, k);
-- LayerNorm / GroupNorm ``scale`` -> ``weight``;
+- LayerNorm / GroupNorm / BatchNorm ``scale`` -> ``weight``; the
+  BatchNorm ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` /
+  ``running_var``;
 - the scan-stacked ``blocks/block/*`` are split on axis 0, and the
   head-aligned qkv kernel (L, C, 3, H, hd) is flattened in C order, which
   gives the [q | k | v] column blocks;
-- ``word_embedding`` and the RVQ codebooks (Q, K, D) are carried as they are.
+- ``word_embedding``, ``uncond_prompt_embedding`` and the RVQ codebooks
+  (Q, K, D) are carried as they are.
+
+An MDM is loaded from its flax variables: ``{'params': ..., 'batch_stats':
+...}`` as ``create_mdm`` returns them for ``audio_norm='batch'``, or the bare
+param tree of a model without statistics.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import numpy as np
 import torch
 
 from syntalker_tpu_torch.device import resolve_device
-from syntalker_tpu_torch.models.denoiser import MDM, MDMConfig
+from syntalker_tpu_torch.models.denoiser import MDM, MDMConfig, RunningBatchNorm
 from syntalker_tpu_torch.models.rvqvae import RVQVAE, RVQVAEConfig
 from syntalker_tpu_torch.ops.quantize import RVQState
 
@@ -39,9 +46,17 @@ def load_conv(conv: torch.nn.Conv1d, p: dict) -> None:
     conv.bias.copy_(_t(p["bias"]))
 
 
-def load_norm(norm, p: dict) -> None:
+def load_norm(norm, p: dict, stats: dict | None = None) -> None:
+    """A norm's scale and bias; a BatchNorm's running mean and variance from
+    its ``batch_stats`` entry. A missing norm (``audio_norm='none'``) has
+    nothing to load."""
+    if isinstance(norm, torch.nn.Identity):
+        return
     norm.weight.copy_(_t(p["scale"]))
     norm.bias.copy_(_t(p["bias"]))
+    if isinstance(norm, RunningBatchNorm):
+        norm.running_mean.copy_(_t(stats["mean"]))
+        norm.running_var.copy_(_t(stats["var"]))
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -49,21 +64,27 @@ def _layer(tree: dict, i: int) -> dict:
 
 
 @torch.no_grad()
-def load_mdm(mdm: MDM, params: dict) -> MDM:
-    """Copy a flax MDM param tree (scan-stacked blocks) into ``mdm``."""
-    p = params.get("params", params)
+def load_mdm(mdm: MDM, variables: dict) -> MDM:
+    """Copy flax MDM variables (scan-stacked blocks) into ``mdm``."""
+    p = variables.get("params", variables)
+    stats = variables.get("batch_stats", {}).get("wav_encoder", {})
     for i, blk in enumerate(mdm.wav_encoder.blocks):
-        bp = p["wav_encoder"][f"block_{i}"]
+        bp, bs = p["wav_encoder"][f"block_{i}"], stats.get(f"block_{i}", {})
         load_conv(blk.conv1, bp["conv1"])
         load_conv(blk.conv2, bp["conv2"])
-        load_norm(blk.norm1, bp["norm1"])
-        load_norm(blk.norm2, bp["norm2"])
+        names = ("norm1", "norm2") + (("down_norm",) if blk.down_conv is not None else ())
+        for name in names:
+            load_norm(getattr(blk, name), bp.get(name), bs.get(name))
         if blk.down_conv is not None:
             load_conv(blk.down_conv, bp["down_conv"])
-            load_norm(blk.down_norm, bp["down_norm"])
     mdm.word_embedding.copy_(_t(p["word_embedding"]))
-    for name in ("text_encoder", "mix_audio_text", "embed_seed", "input_process",
-                 "input_process2", "output_process"):
+    dense = ["text_encoder", "mix_audio_text", "embed_seed", "input_process", "input_process2", "output_process"]
+    if mdm.cfg.use_prompt:
+        mdm.uncond_prompt_embedding.copy_(_t(p["uncond_prompt_embedding"]))
+        dense.append("input_process3")
+    if mdm.cfg.use_motionclip:
+        dense.append("input_process_style")
+    for name in dense:
         load_dense(getattr(mdm, name), p[name])
     load_dense(mdm.time_mlp.fc1, p["time_mlp"]["fc1"])
     load_dense(mdm.time_mlp.fc2, p["time_mlp"]["fc2"])
@@ -93,8 +114,10 @@ def load_rvqvae(module: RVQVAE, params: dict) -> RVQVAE:
     return module
 
 
-def mdm_from_flax(cfg: MDMConfig, params: dict, *, device=None) -> MDM:
-    mdm = load_mdm(MDM(cfg), params)
+def mdm_from_flax(cfg: MDMConfig, variables: dict, *, device=None) -> MDM:
+    """The port's MDM, in eval mode, from flax variables (or a bare param
+    tree, as ``mdm_variables`` takes them in JAX)."""
+    mdm = load_mdm(MDM(cfg), variables)
     return mdm.to(resolve_device(device)).eval().requires_grad_(False)
 
 

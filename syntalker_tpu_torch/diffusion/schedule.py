@@ -1,9 +1,10 @@
 """Diffusion noise schedule and timestep respacing as numpy arrays.
 
 Counterpart of ``make_diffusion`` / ``DiffusionParams`` in
-``syntalker_tpu/diffusion/schedule.py``, reduced to what the η=0 DDIM
-samplers read: the cosine betas of the shipped configuration, respaced
-once at construction ('ddimN'), numpy only.
+``syntalker_tpu/diffusion/schedule.py`` for what the samplers read: the
+cosine betas of the shipped configuration, respaced once at construction
+('ddimN'), the q-process and posterior terms of DDPM and DDIM, as numpy
+arrays; :meth:`DiffusionParams.gather` reads them at tensor timesteps.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 
 
 def cosine_betas(num_steps: int, max_beta: float = 0.999) -> np.ndarray:
@@ -50,8 +52,20 @@ class DiffusionParams:
     betas: np.ndarray
     alphas_cumprod: np.ndarray
     alphas_cumprod_prev: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
     sqrt_recip_alphas_cumprod: np.ndarray
     sqrt_recipm1_alphas_cumprod: np.ndarray
+    posterior_variance: np.ndarray
+    posterior_log_variance_clipped: np.ndarray
+    posterior_mean_coef1: np.ndarray
+    posterior_mean_coef2: np.ndarray
+
+    def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The f32 values of schedule array ``name`` at sampled-index
+        timesteps t (B,), shaped (B, 1, 1) on t's device."""
+        arr = torch.as_tensor(getattr(self, name), dtype=torch.float32, device=t.device)
+        return arr[t][:, None, None]
 
     def ddim_coefficients(self) -> tuple[np.ndarray, np.ndarray]:
         """η=0 DDIM update x' = a·x + b·x0 in ITERATION order (iteration it
@@ -87,14 +101,24 @@ def make_diffusion(*, steps: int = 1000, timestep_respacing: str | None = None) 
     else:
         timestep_map = np.arange(steps, dtype=np.int32)
 
-    acp = np.cumprod(1.0 - betas)
+    alphas = 1.0 - betas
+    acp = np.cumprod(alphas)
     acp_prev = np.append(1.0, acp[:-1])
+    posterior_variance = betas * (1.0 - acp_prev) / (1.0 - acp)
+    # the first step's variance is 0; its log takes the second step's value
+    post_logvar = np.log(np.append(posterior_variance[1], posterior_variance[1:]))
     return DiffusionParams(
         num_steps=len(betas),
         timestep_map=timestep_map,
         betas=betas.astype(np.float32),
         alphas_cumprod=acp.astype(np.float32),
         alphas_cumprod_prev=acp_prev.astype(np.float32),
+        sqrt_alphas_cumprod=np.sqrt(acp).astype(np.float32),
+        sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - acp).astype(np.float32),
         sqrt_recip_alphas_cumprod=np.sqrt(1.0 / acp).astype(np.float32),
         sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / acp - 1.0).astype(np.float32),
+        posterior_variance=posterior_variance.astype(np.float32),
+        posterior_log_variance_clipped=post_logvar.astype(np.float32),
+        posterior_mean_coef1=(betas * np.sqrt(acp_prev) / (1.0 - acp)).astype(np.float32),
+        posterior_mean_coef2=((1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)).astype(np.float32),
     )

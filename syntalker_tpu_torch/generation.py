@@ -1,35 +1,45 @@
 """End-to-end audio→motion generation: windowed autoregressive outpainting.
 
-Counterpart of ``syntalker_tpu/generation.py`` for the unprompted DDIM
-path. A clip is cut into 128-frame windows; each is seeded with the
-previous window's last 4 latent frames and sampled with η=0 DDIM; the
-windows are stitched (first whole, later ones minus the seed overlap),
-scaled, snapped and decoded per body part, denormalized, the lower-body
-translation velocity integrated, and everything scattered back to
-165-dof axis-angle.
+Counterpart of ``syntalker_tpu/generation.py``. A clip is cut into
+128-frame windows; each is seeded with the previous window's last 4 latent
+frames and sampled; the windows are stitched (first whole, later ones minus
+the seed overlap), scaled, snapped and decoded per body part, denormalized,
+the lower-body translation velocity integrated, and everything scattered
+back to 165-dof axis-angle.
 
 Samplers:
 
-- :func:`sample_windows_lean` — the plain reference sampler (PyTorch f32,
-  the algebraic folds of the JAX lean sampler);
-- :func:`make_fused_loop_sampler` — one K1 call per window;
-- :func:`sample_windows_fused` — a host loop over steps, one K2 call per
-  step.
+- :func:`sample_windows` — the general sampler: DDPM or DDIM, the per-body-
+  part prompt CFG with its guidance branches stacked into one denoise a
+  step (K2 at batch K·B on the card), a MotionCLIP style;
+- :func:`sample_windows_lean` — the plain reference of the unprompted η=0
+  DDIM path (PyTorch f32, the algebraic folds of the JAX lean sampler);
+- :func:`make_fused_loop_sampler` — unprompted, one K1 call per window;
+- :func:`sample_windows_fused` — unprompted, a host loop over steps, one K2
+  call per step.
+
+The three unprompted samplers read no prompt or style, as in JAX: on a
+``use_prompt`` model they skip ``input_process3``, where
+``sample_windows(prompts=None)`` applies it with the null prompt.
 
 JAX's threefry key chain has no PyTorch counterpart, so every sampler takes
-the per-window initial noise explicitly, ``(W, B, T, 1536)``; see
-:func:`draw_noise` for drawing it from a ``torch.Generator``.
+the per-window initial noise explicitly, ``(W, B, T, 1536)`` (see
+:func:`draw_noise` for drawing it from a ``torch.Generator``), and DDPM its
+per-step noise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import numpy as np
 import torch
 
 from syntalker_tpu_torch.data import joints as J
+from syntalker_tpu_torch.diffusion.cfg import make_bodypart_cfg_model_fn
+from syntalker_tpu_torch.diffusion.core import sample
 from syntalker_tpu_torch.models.denoiser import MDM, Conditioning, apply_rope, rope_angles
 from syntalker_tpu_torch.ops import rotations as rot
 from syntalker_tpu_torch.ops.mdm_cuda import FusedDDIMWindow, make_fused_denoise, stack_block_weights
@@ -115,6 +125,60 @@ def _encode_all(mdm: MDM, audio_windows, word_windows, pre: int) -> torch.Tensor
 
 
 @torch.no_grad()
+def sample_windows(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, word_windows, init_seed, noise, *,
+                   sampler: str = "ddpm", step_noise=None, prompts=None, guidance=None, uncond_audio=False,
+                   style=None, denoise=None):
+    """Windowed sampling with the seed carried; returns stitched latents
+    (B, out_latent_frames, 1536).
+
+    Per window: without ``prompts``, one conditioning (``uncond_audio``
+    applied) and the plain conditioned sampler. With ``prompts`` (part ->
+    (B, prompt_dim)), the audio branch (null prompt), the unconditional
+    branch (null audio and prompt) and one branch per prompted part (null
+    audio, that part's prompt), mixed by
+    :func:`~syntalker_tpu_torch.diffusion.cfg.make_bodypart_cfg_model_fn`
+    with ``guidance`` (``audio_scale``, ``prompt_scale``). ``style``
+    (B, style_dim) enters every encode. ``noise`` is the initial noise of
+    each window (W, B, T, 1536); DDPM also reads ``step_noise``, a tensor
+    (W, S, B, T, 1536) or a callable ``(w, it) -> (B, T, 1536)``.
+    ``denoise(x_t, t_emb, cond) -> x0`` defaults to the block stack through
+    K2 with bf16 weights."""
+    if denoise is None:
+        denoise = make_fused_denoise(mdm, stack_block_weights(mdm))
+    guidance = guidance or {}
+    dev = init_seed.device
+    tmap = torch.as_tensor(np.asarray(diffusion.timestep_map), dtype=torch.long, device=dev)
+    t_emb_all = mdm.embed_timesteps(tmap)
+
+    def denoise_fn(x, t, cond):
+        return denoise(x, t_emb_all[torch.searchsorted(tmap, t)], cond)
+
+    seed, outs = init_seed, []
+    for w in range(plan.num_windows):
+        def encode(**kw):
+            return mdm.encode_cond(audio_windows[w], word_windows[w], seed, style=style, **kw)
+
+        if prompts is None:
+            cond = encode(uncond_audio=uncond_audio)
+
+            def model_fn(x, t):
+                return denoise_fn(x, t, cond)
+        else:
+            part_conds = {name: None if prompts.get(name) is None
+                          else encode(uncond_audio=True, prompt=prompts[name]) for name in J.LATENT_SLICES}
+            model_fn = make_bodypart_cfg_model_fn(
+                denoise_fn, encode(uncond_prompt=True), encode(uncond_audio=True, uncond_prompt=True), part_conds,
+                audio_scale=guidance.get("audio_scale", 1.0), prompt_scale=guidance.get("prompt_scale", 4.0))
+        noise_w = step_noise
+        if step_noise is not None:
+            noise_w = functools.partial(step_noise, w) if callable(step_noise) else step_noise[w]
+        x = sample(diffusion, model_fn, noise[w], method=sampler, step_noise=noise_w)
+        outs.append(x)
+        seed = x[:, -plan.pre_frames :]
+    return _stitch(outs, plan.pre_frames)
+
+
+@torch.no_grad()
 def sample_windows_lean(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, word_windows, init_seed, noise):
     """Plain reference sampler: windowed η=0 DDIM in f32 with the exact
     algebraic folds of the JAX lean sampler (``input_process`` ∘ the x slab
@@ -185,7 +249,7 @@ def sample_windows_fused(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, w
     prebuilt :func:`stack_block_weights` (a service caches it)."""
     if weights is None:
         weights = stack_block_weights(mdm)
-    denoise = make_fused_denoise(mdm, weights)
+    denoise = make_fused_denoise(mdm, weights)  # JAX's fused denoise reads no prompt or style
     b = audio_windows.shape[1]
     dev = init_seed.device
     tmap = torch.as_tensor(np.asarray(diffusion.timestep_map), dtype=torch.long, device=dev)
@@ -195,6 +259,7 @@ def sample_windows_fused(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, w
     seed, outs = init_seed, []
     for w in range(plan.num_windows):
         cond = mdm.encode_cond(audio_windows[w], word_windows[w], seed)
+        cond = Conditioning(at_feat=cond.at_feat, seed_emb=cond.seed_emb)
         x = noise[w]
         for it in range(n):
             te = t_emb_all[n - 1 - it][None].expand(b, -1)

@@ -1,17 +1,21 @@
 """MDM transformer denoiser over the concatenated body-part latent (PyTorch).
 
-Counterpart of ``syntalker_tpu/models/denoiser.py`` for the unprompted
-audio→motion path: ``MDMConfig``, the ``WavEncoder`` conv pyramid,
-``encode_cond`` / ``embed_timesteps`` / ``denoise`` / ``run_blocks``. The
-public methods keep the JAX layout ``(B, T, C)``; the convolutions transpose
-to NCW inside. Parameter names mirror the flax tree so that ``bridge.py``
-maps one onto the other name for name.
+Counterpart of ``syntalker_tpu/models/denoiser.py`` at inference:
+``MDMConfig``, the ``WavEncoder`` conv pyramid, ``encode_cond`` (audio and
+word features, the TMR text prompt with its learned null embedding, the
+MotionCLIP style with a zero null, and the guidance masks of each) /
+``embed_timesteps`` / ``denoise`` (with the ``input_process3`` prompt and
+``input_process_style`` style concats) / ``run_blocks``. The public methods
+keep the JAX layout ``(B, T, C)``; the convolutions transpose to NCW inside.
+Parameter names mirror the flax tree so that ``bridge.py`` maps one onto
+the other name for name.
 
-Left out for later slices: the text-prompt (``input_process3``) and
-MotionCLIP (``input_process_style``) branches, BatchNorm or folded-norm
-WavEncoders (the port's encoder is the GroupNorm one, flax's
-``audio_norm='group'``), dropout and drop-path (inference only). The TPU
-lane-fill rewrites of the flax module (``_pair_packed_conv1d``, the fused
+The WavEncoder norm is GroupNorm (``audio_norm='group'``), BatchNorm on its
+running statistics (``'batch'``, the h3d configuration) or none (``'none'``,
+reference checkpoints with BatchNorm folded into the convs). Left out for
+later slices: train-mode BatchNorm with its momentum, the train-time
+condition dropouts (``cond_mask_prob*``) and drop-path. The TPU lane-fill
+rewrites of the flax module (``_pair_packed_conv1d``, the fused
 ``conv1‖down_conv``) are exact rewrites of plain convolutions and are plain
 ``nn.Conv1d`` calls here.
 """
@@ -19,6 +23,7 @@ lane-fill rewrites of the flax module (``_pair_packed_conv1d``, the fused
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +46,11 @@ class MDMConfig:
     vocab_size: int = 11195
     n_seed: int = 4  # latent seed frames carried between windows
     squeeze_scale: int = 4  # motion frames per latent frame
+    use_prompt: bool = False  # TMR text prompt through input_process3
+    prompt_dim: int = 256
+    use_motionclip: bool = False  # MotionCLIP style through input_process_style
+    style_dim: int = 512
+    audio_norm: str = "group"  # WavEncoder norm: 'group', 'batch' (running statistics) or 'none'
 
 
 @dataclasses.dataclass
@@ -49,6 +59,8 @@ class Conditioning:
 
     at_feat: torch.Tensor  # (B, T_latent, audio_feat_dim) fused audio+word features
     seed_emb: torch.Tensor  # (B, latent_dim) seed-pose embedding
+    prompt_feat: Optional[torch.Tensor] = None  # (B, prompt_dim), use_prompt models
+    style_feat: Optional[torch.Tensor] = None  # (B, style_dim), use_motionclip models
 
 
 def _groups(c: int) -> int:
@@ -58,19 +70,42 @@ def _groups(c: int) -> int:
     return g
 
 
-class AudioBasicBlock(nn.Module):
-    """Residual k=15 conv block of the wav encoder; GroupNorm eps 1e-6,
-    leaky_relu 0.01. ``pad`` reproduces the 16 kHz → 30 fps arithmetic."""
+class RunningBatchNorm(nn.BatchNorm1d):
+    """BatchNorm1d on its running statistics (eps 1e-5) whatever the
+    module's mode: the train-mode statistics wait for the training slice."""
 
-    def __init__(self, cin: int, cout: int, stride: int, pad: int, downsample: bool):
+    def __init__(self, c: int):
+        super().__init__(c, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+
+
+def make_norm(kind: str, c: int) -> nn.Module:
+    """The wav encoder's norm over c channels (NCW)."""
+    if kind == "group":
+        return nn.GroupNorm(_groups(c), c, eps=1e-6)
+    if kind == "batch":
+        return RunningBatchNorm(c)
+    if kind == "none":
+        return nn.Identity()
+    raise ValueError(f"unknown audio_norm {kind!r}: 'group', 'batch' or 'none'")
+
+
+class AudioBasicBlock(nn.Module):
+    """Residual k=15 conv block of the wav encoder; ``norm`` as in
+    :func:`make_norm`, leaky_relu 0.01. ``pad`` reproduces the 16 kHz →
+    30 fps arithmetic."""
+
+    def __init__(self, cin: int, cout: int, stride: int, pad: int, downsample: bool, norm: str = "group"):
         super().__init__()
         self.conv1 = nn.Conv1d(cin, cout, 15, stride=stride, padding=pad)
-        self.norm1 = nn.GroupNorm(_groups(cout), cout, eps=1e-6)
+        self.norm1 = make_norm(norm, cout)
         self.conv2 = nn.Conv1d(cout, cout, 15, padding=7)
-        self.norm2 = nn.GroupNorm(_groups(cout), cout, eps=1e-6)
+        self.norm2 = make_norm(norm, cout)
         if downsample:
             self.down_conv = nn.Conv1d(cin, cout, 15, stride=stride, padding=pad)
-            self.down_norm = nn.GroupNorm(_groups(cout), cout, eps=1e-6)
+            self.down_norm = make_norm(norm, cout)
         else:
             self.down_conv = None
 
@@ -86,7 +121,7 @@ class WavEncoder(nn.Module):
     Stride plan 5·6·1·6·1·3 with pads 1700/0/7/0/7/0 maps 16000/30·F
     samples to exactly F frames."""
 
-    def __init__(self, out_dim: int = 256, in_channels: int = 2):
+    def __init__(self, out_dim: int = 256, in_channels: int = 2, norm: str = "group"):
         super().__init__()
         d = out_dim
         plan = [
@@ -99,7 +134,7 @@ class WavEncoder(nn.Module):
         ]
         blocks, cin = [], in_channels
         for c, s, p, down in plan:
-            blocks.append(AudioBasicBlock(cin, c, s, p, down))
+            blocks.append(AudioBasicBlock(cin, c, s, p, down, norm))
             cin = c
         self.blocks = nn.ModuleList(blocks)
 
@@ -185,7 +220,7 @@ class MDM(nn.Module):
     def __init__(self, cfg: MDMConfig):
         super().__init__()
         c = self.cfg = cfg
-        self.wav_encoder = WavEncoder(c.audio_feat_dim)
+        self.wav_encoder = WavEncoder(c.audio_feat_dim, norm=c.audio_norm)
         self.word_embedding = nn.Parameter(torch.randn(c.vocab_size, c.word_embed_dim) * 0.02)
         self.text_encoder = nn.Linear(c.word_embed_dim, c.word_feat_dim)
         self.mix_audio_text = nn.Linear(c.audio_feat_dim + c.word_feat_dim, c.audio_feat_dim)
@@ -193,19 +228,33 @@ class MDM(nn.Module):
         self.time_mlp = TimestepMLP(c.latent_dim)
         self.input_process = nn.Linear(c.latent_total_dim, c.latent_dim)
         self.input_process2 = nn.Linear(2 * c.latent_dim + c.audio_feat_dim, c.latent_dim)
+        if c.use_prompt:
+            # the null prompt is learned, not zeros
+            self.uncond_prompt_embedding = nn.Parameter(torch.zeros(1, c.prompt_dim))
+            self.input_process3 = nn.Linear(c.latent_dim + c.prompt_dim, c.latent_dim)
+        if c.use_motionclip:
+            self.input_process_style = nn.Linear(c.latent_dim + c.style_dim, c.latent_dim)
         self.blocks = nn.ModuleList(
             TransformerBlock(c.latent_dim, c.num_heads, c.ff_size) for _ in range(c.num_layers)
         )
         self.output_process = nn.Linear(c.latent_dim, c.latent_total_dim)
 
-    def encode_cond(self, audio: torch.Tensor, word: torch.Tensor, seed: torch.Tensor) -> Conditioning:
+    def encode_cond(self, audio: torch.Tensor, word: torch.Tensor, seed: torch.Tensor, *,
+                    prompt: Optional[torch.Tensor] = None, style: Optional[torch.Tensor] = None,
+                    uncond_audio=False, uncond_prompt=False, uncond_style=False) -> Conditioning:
         """audio (B, S, 2) raw 16 kHz channels, word (B, F) ids, seed
-        (B, n_seed, 1536) -> per-latent-frame conditioning."""
+        (B, n_seed, 1536), prompt (B, prompt_dim), style (B, style_dim) ->
+        per-latent-frame conditioning. Each ``uncond_*`` is a bool or a (B,)
+        mask that swaps the condition for its null: zero audio and word
+        features, the learned null prompt (also taken when ``prompt`` is
+        None), a zero style (also when ``style`` is None)."""
         c = self.cfg
         with full_f32():
             audio_feat = self.wav_encoder(audio)
         text_feat = self.text_encoder(self.word_embedding[word])
         b = audio_feat.shape[0]
+        keep_a = 1.0 - _mask(uncond_audio, audio_feat).reshape(-1, 1, 1)
+        audio_feat, text_feat = audio_feat * keep_a, text_feat * keep_a
         # the conv arithmetic can overshoot the word-frame count by a frame
         # for off-spec lengths; align on the common prefix
         f_common = min(audio_feat.shape[1], text_feat.shape[1])
@@ -214,20 +263,40 @@ class MDM(nn.Module):
         f = at.shape[1] // c.squeeze_scale
         at = at[:, : f * c.squeeze_scale].reshape(b, f, c.squeeze_scale, -1).mean(2)
         seed_emb = self.embed_seed(seed.reshape(b, -1))
-        return Conditioning(at_feat=at, seed_emb=seed_emb)
+
+        prompt_feat = style_feat = None
+        if c.use_prompt:
+            null = self.uncond_prompt_embedding
+            if prompt is None:
+                prompt = null.expand(b, -1)
+            mask_p = _mask(uncond_prompt, at).reshape(-1, 1)
+            prompt_feat = prompt * (1.0 - mask_p) + null * mask_p
+        if c.use_motionclip:
+            if style is None:
+                style = at.new_zeros(b, c.style_dim)
+            style_feat = style * (1.0 - _mask(uncond_style, at).reshape(-1, 1))
+        return Conditioning(at_feat=at, seed_emb=seed_emb, prompt_feat=prompt_feat, style_feat=style_feat)
 
     def embed_timesteps(self, t: torch.Tensor) -> torch.Tensor:
         """(N,) int timesteps -> (N, latent) embeddings."""
         return self.time_mlp(t)
 
     def prepare_sequence(self, x_t, t_emb, cond: Conditioning) -> torch.Tensor:
-        """The block-stack input: input projections, style/audio concat,
-        RoPE over ``rope_heads`` sub-heads."""
+        """The block-stack input: input projections, seed/timestep and
+        audio concat, the prompt concat (``input_process3``) and the style
+        concat (``input_process_style``) where the model has them and
+        ``cond`` carries them, RoPE over ``rope_heads`` sub-heads."""
         c = self.cfg
         b, n, _ = x_t.shape
         x_emb = self.input_process(x_t)
         style = (cond.seed_emb + t_emb)[:, None, :].expand(b, n, c.latent_dim)
         xseq = self.input_process2(torch.cat([style, x_emb, cond.at_feat[:, :n]], dim=-1))
+        if c.use_prompt and cond.prompt_feat is not None:
+            p = cond.prompt_feat[:, None, :].expand(b, n, -1)
+            xseq = self.input_process3(torch.cat([xseq, p], dim=-1))
+        if c.use_motionclip and cond.style_feat is not None:
+            s = cond.style_feat[:, None, :].expand(b, n, -1)
+            xseq = self.input_process_style(torch.cat([xseq, s], dim=-1))
         hd = c.latent_dim // c.rope_heads
         angles = rope_angles(n, hd).to(xseq.device)[:, None, :]
         return apply_rope(xseq.reshape(b, n, c.rope_heads, hd), angles).reshape(b, n, c.latent_dim)
@@ -243,6 +312,11 @@ class MDM(nn.Module):
         if t_emb is None:
             t_emb = self.embed_timesteps(t)
         return self.output_process(self.run_blocks(self.prepare_sequence(x_t, t_emb, cond)))
+
+
+def _mask(flag, like: torch.Tensor) -> torch.Tensor:
+    """A bool or (B,) guidance mask as f32 on ``like``'s device."""
+    return torch.as_tensor(flag, dtype=torch.float32, device=like.device)
 
 
 def build_mdm(cfg: MDMConfig, *, seed: int, device=None) -> MDM:

@@ -8,7 +8,10 @@ Counterparts in ``syntalker_tpu/ops/mdm_pallas.py``:
   axis by :func:`stack_block_weights`;
 - ``make_fused_denoise`` ↔ ``make_fused_denoise``: one denoise call with the
   stack through K2 and the in/out projections in PyTorch, as the JAX
-  function leaves them to XLA;
+  function leaves them to XLA. It runs the model's whole
+  ``prepare_sequence``: the prompt and style concats too, where the
+  conditioning carries them (JAX's reads neither, so its unprompted callers
+  pass a conditioning without them);
 - ``FusedDDIMWindow`` ↔ ``make_fused_ddim_window`` / ``_ddim_window_kernel``
   (K1): every step of one window's η=0 DDIM loop, the in/out projections,
   RoPE and the update included.
@@ -351,7 +354,8 @@ def block_stack(x: torch.Tensor, w: dict, *, num_heads: int) -> torch.Tensor:
 
 def make_fused_denoise(mdm: MDM, weights: dict):
     """``denoise(x_t, t_emb, cond) -> x0`` with the block stack through K2;
-    input/output projections and RoPE as in :meth:`MDM.denoise`."""
+    input/output projections, the prompt and style concats and RoPE as in
+    :meth:`MDM.denoise`."""
     heads = mdm.cfg.num_heads
 
     def denoise(x_t, t_emb, cond: Conditioning):

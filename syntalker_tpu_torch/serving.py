@@ -1,17 +1,24 @@
 """Batched motion-generation service (PyTorch/CUDA).
 
-Counterpart of ``MotionGenerationService`` in ``syntalker_tpu/serving.py``
-for unprompted requests: requests are queued, padded to a fixed bucket
-(``max_batch`` requests of ``max_seconds`` audio) and run together. The
-sampler is the kernel path: ``fused_loop=True`` runs each window's DDIM
-loop in K1, ``fused_loop=False`` one K2 block stack per step; the decode
-snap runs K3. On the CPU the same code reaches the kernels' plain versions
-through their wrappers.
+Counterpart of ``MotionGenerationService`` in ``syntalker_tpu/serving.py``:
+requests are queued and each flush groups them by prompt configuration
+(which parts are prompted, the guidance scales, whether a style is given).
+Each group is padded to a fixed bucket (``max_batch`` requests of
+``max_seconds`` audio) and run together, with its own initial noise from
+the service's generator.
 
-There is no ``use_fused`` switch: on a CUDA device the service always
-takes the kernel path. The TPU tile knob ``tile_samples`` has no
-counterpart. Prompted or styled requests (the per-part CFG path) and the
-``mesh=`` data-parallel form wait for later slices.
+- Unprompted requests take the kernel fast path: ``fused_loop=True`` runs
+  each window's DDIM loop in K1, ``fused_loop=False`` one K2 block stack per
+  step. Like JAX's lean and fused samplers, this path reads no prompt.
+- Prompted or styled requests run ``generation.sample_windows`` (η=0 DDIM)
+  with the per-body-part CFG: every step stacks the group's guidance
+  branches into one K2 call at batch K·``max_batch``.
+
+The decode snap runs K3. On the CPU the same code reaches the kernels'
+plain versions through their wrappers. There is no ``use_fused`` switch: on
+a CUDA device the service always takes the kernel path. The TPU tile knob
+``tile_samples`` has no counterpart; the ``mesh=`` data-parallel form waits
+for a later slice.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from syntalker_tpu_torch import generation as G
 from syntalker_tpu_torch.data import audio as A
 from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.device import resolve_device
-from syntalker_tpu_torch.ops.mdm_cuda import stack_block_weights
+from syntalker_tpu_torch.ops.mdm_cuda import make_fused_denoise, stack_block_weights
 
 
 @dataclasses.dataclass
@@ -36,8 +43,11 @@ class MotionRequest:
     audio: np.ndarray  # (S,) 16 kHz waveform
     words: Optional[np.ndarray] = None  # (F,) frame word ids
     request_id: str = ""
-    prompts: Optional[Dict[str, np.ndarray]] = None  # part -> (P,); not served yet
-    style: Optional[np.ndarray] = None  # (style_dim,); not served yet
+    # the per-body-part text-prompt embeddings (TMR, prompt_dim), the
+    # guidance scales (audio_scale, prompt_scale) and the MotionCLIP style
+    prompts: Optional[Dict[str, np.ndarray]] = None  # part -> (prompt_dim,)
+    guidance: Optional[dict] = None
+    style: Optional[np.ndarray] = None  # (style_dim,)
 
 
 @dataclasses.dataclass
@@ -56,7 +66,7 @@ class MotionGenerationService:
     ``mdm`` is a :class:`~syntalker_tpu_torch.models.denoiser.MDM` and
     ``rvq_modules`` maps each body part to ``(RVQVAE, RVQState)``; both are
     moved to ``device`` (CUDA unless ``device="cpu"``). ``seed`` seeds the
-    generator that draws each batch's initial noise.
+    generator that draws each group's initial noise.
     """
 
     def __init__(
@@ -98,15 +108,28 @@ class MotionGenerationService:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # K2's weights, with its CUDA graphs: the prompted path's, and the fast path's without fused_loop
+        weights = stack_block_weights(self.mdm)
+        self._prompted_denoise = make_fused_denoise(self.mdm, weights)
         if fused_loop:
             self._sample = G.make_fused_loop_sampler(self.mdm, diffusion, self.plan)
         else:
-            weights = stack_block_weights(self.mdm)
 
             def sample(aw, ww, seed_lat, noise):
                 return G.sample_windows_fused(self.mdm, diffusion, self.plan, aw, ww, seed_lat, noise, weights=weights)
 
             self._sample = sample
+
+    @staticmethod
+    def _bucket_key(req: MotionRequest):
+        """None for the unprompted fast path; otherwise (prompted parts,
+        audio_scale, prompt_scale, style given), the configuration that one
+        group shares."""
+        if req.prompts is None and req.style is None:
+            return None
+        g = req.guidance or {}
+        parts = tuple(sorted(k for k, v in (req.prompts or {}).items() if v is not None))
+        return parts, float(g.get("audio_scale", 1.0)), float(g.get("prompt_scale", 4.0)), req.style is not None
 
     def _prepare(self, req: MotionRequest):
         y = np.zeros(self.samples, np.float32)
@@ -120,24 +143,44 @@ class MotionGenerationService:
 
     def submit(self, req: MotionRequest) -> threading.Event:
         """Queue a request; returns an event set when its result is ready
-        (read from ``results[request_id]``)."""
-        if req.prompts is not None or req.style is not None:
-            raise NotImplementedError(
-                "prompted/styled requests need the body-part CFG slice "
-                "(input_process3 / style), not ported yet"
-            )
+        (read from ``results[request_id]``). A prompted request to a model
+        without ``use_prompt`` raises ``ValueError``."""
+        cfg = self.mdm.cfg
+        key = self._bucket_key(req)
+        if key is not None and key[0] and not cfg.use_prompt:
+            raise ValueError("prompted requests need an MDM with use_prompt=True")
+        for part in key[0] if key else ():
+            if part not in J.LATENT_SLICES or np.shape(req.prompts[part]) != (cfg.prompt_dim,):
+                raise ValueError(f"prompt {part!r}: a part of {tuple(J.LATENT_SLICES)} and ({cfg.prompt_dim},)")
+        if req.style is not None and cfg.use_motionclip and np.shape(req.style) != (cfg.style_dim,):
+            raise ValueError(f"style: ({cfg.style_dim},)")
         done = threading.Event()
         with self._lock:
             self._queue.append((req, done, time.perf_counter()))
         return done
 
     def flush(self) -> List[MotionResult]:
-        """Run up to max_batch queued requests as one padded device batch."""
+        """Run up to max_batch queued requests: one padded device batch per
+        prompt configuration present, unprompted requests through the fast
+        path, the others through the CFG sampler."""
         with self._lock:
             batch = self._queue[: self.max_batch]
             self._queue = self._queue[self.max_batch :]
-        if not batch:
-            return []
+        groups: Dict[Optional[tuple], list] = {}
+        for item in batch:
+            groups.setdefault(self._bucket_key(item[0]), []).append(item)
+        out = []
+        for key, items in groups.items():
+            out.extend(self._run_group(key, items))
+        return out
+
+    def _stack_rows(self, rows) -> torch.Tensor:
+        """Per-request vectors padded with zero rows to max_batch."""
+        rows = [np.asarray(r, np.float32) for r in rows]
+        rows += [np.zeros_like(rows[0])] * (self.max_batch - len(rows))
+        return torch.as_tensor(np.stack(rows), device=self.device)
+
+    def _run_group(self, key, batch) -> List[MotionResult]:
         feats, words = zip(*(self._prepare(r) for r, _, _ in batch))
         pad = self.max_batch - len(batch)
         audio = np.concatenate([np.stack(feats), np.zeros((pad, self.samples, 2), np.float32)])
@@ -149,8 +192,18 @@ class MotionGenerationService:
         seed = torch.zeros(self.max_batch, self.plan.pre_frames, J.LATENT_DIM, device=dev)
         noise = G.draw_noise(self.plan, self.max_batch, self._gen, dev)
         with torch.no_grad():
-            latents = self._sample(aw, ww, seed, noise)
-            dec = G.decode_latents(latents, rvq_modules=self.rvq_modules, stats=self.stats, latent_scale=self.latent_scale)
+            if key is None:
+                latents = self._sample(aw, ww, seed, noise)
+            else:
+                parts, audio_scale, prompt_scale, has_style = key
+                prompts = {p: self._stack_rows([r.prompts[p] for r, _, _ in batch]) for p in parts}
+                style = self._stack_rows([r.style for r, _, _ in batch]) if has_style else None
+                latents = G.sample_windows(
+                    self.mdm, self.diffusion, self.plan, aw, ww, seed, noise, sampler="ddim",
+                    prompts=prompts or None, guidance={"audio_scale": audio_scale, "prompt_scale": prompt_scale},
+                    style=style, denoise=self._prompted_denoise)
+            dec = G.decode_latents(latents, rvq_modules=self.rvq_modules, stats=self.stats,
+                                   latent_scale=self.latent_scale)
         aa = dec["axis_angle"].cpu().numpy()
         trans = dec["trans"].cpu().numpy()
 

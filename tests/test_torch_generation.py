@@ -1,7 +1,8 @@
-"""The port's samplers and service on the CPU. The plain reference sampler,
-fed the initial noise of JAX's key chain, against ``sample_windows_lean``;
-the K1 and K2 samplers (their plain versions, f32 weights) against the same;
-the service answering requests on ``device="cpu"``."""
+"""The port's unprompted samplers and service on the CPU. The plain
+reference sampler, fed the initial noise of JAX's key chain, against
+``sample_windows_lean``; the K1 and K2 samplers (their plain versions, f32
+weights) against the same; the service answering requests on
+``device="cpu"``. The prompted path: tests/test_torch_prompted_sampling.py."""
 
 import dataclasses
 
@@ -106,13 +107,14 @@ def test_draw_noise_is_seeded():
 # ---------------------------------------------------------------------------
 # the service on the CPU
 
-def _service(fused_loop: bool, **kw):
+def _service(fused_loop: bool, mdm=None, **kw):
     q = RVQConfig(num_quantizers=2, nb_code=16, code_dim=512)
     rvq = {part: build_rvqvae(RVQVAEConfig(input_dim=dim, width=32, depth=1, quantizer=q), seed=i, device="cpu")
            for i, (part, dim) in enumerate((("upper", 78), ("hands", 180), ("lower", 57)))}
     return MotionGenerationService(
-        mdm=build_mdm(CFG, seed=0, device="cpu"), diffusion=make_diffusion(steps=4), rvq_modules=rvq,
-        stats=identity_pose_stats(), max_batch=4, max_seconds=128 / 30, fused_loop=fused_loop, device="cpu", **kw)
+        mdm=build_mdm(CFG, seed=0, device="cpu") if mdm is None else mdm, diffusion=make_diffusion(steps=4),
+        rvq_modules=rvq, stats=identity_pose_stats(), max_batch=4, max_seconds=128 / 30, fused_loop=fused_loop,
+        device="cpu", **kw)
 
 
 def _requests(n):
@@ -152,7 +154,10 @@ def test_service_background_loop():
 
 
 def test_service_rejects_prompted_requests():
+    """A prompted request to a model without use_prompt raises JAX's
+    ValueError; the queue keeps nothing of it."""
     svc = _service(True)
     req = MotionRequest(audio=np.zeros(16000, np.float32), prompts={"upper": np.zeros(8, np.float32)})
-    with pytest.raises(NotImplementedError, match="body-part CFG"):
+    with pytest.raises(ValueError, match="use_prompt=True"):
         svc.submit(req)
+    assert svc.flush() == []

@@ -54,6 +54,38 @@ def test_block_stack_kernel_matches_plain(mdm, dev):
     assert mdm_cuda.launches["block_stack"] == before + 3 * plan  # a replay and nothing else
 
 
+@pytest.mark.parametrize("b", [24, 32, 40])
+def test_block_stack_at_prompted_batches(mdm, dev, b):
+    """K2 at the batches of the prompted path: K = 3, 4 or 5 guidance
+    branches of 8 samples stacked into one call."""
+    w = mdm_cuda.stack_block_weights(mdm)
+    g = torch.Generator(dev).manual_seed(b)
+    for _ in range(2):  # the capture's call, then a replay on new inputs
+        x = torch.randn(b, 32, SMALL.latent_dim, device=dev, generator=g)
+        out = mdm_cuda.block_stack(x, w, num_heads=SMALL.num_heads)
+        assert rel_err(out, mdm_cuda.block_stack_plain(x, w, num_heads=SMALL.num_heads)) < REL
+
+
+def test_prompted_denoise_matches_plain_mdm(dev):
+    """The prompted path's denoise (the whole prepare_sequence, prompt and
+    style concats included, then K2) against MDM.denoise in f32."""
+    import dataclasses
+
+    cfg = dataclasses.replace(SMALL, use_prompt=True, prompt_dim=16, use_motionclip=True, style_dim=8)
+    model = build_mdm(cfg, seed=1, device=dev)
+    g = torch.Generator(dev).manual_seed(9)
+    b = 24
+    cond = Conditioning(torch.randn(b, 32, cfg.audio_feat_dim, device=dev, generator=g),
+                        torch.randn(b, cfg.latent_dim, device=dev, generator=g),
+                        prompt_feat=torch.randn(b, 16, device=dev, generator=g),
+                        style_feat=torch.randn(b, 8, device=dev, generator=g))
+    x_t = torch.randn(b, 32, cfg.latent_total_dim, device=dev, generator=g)
+    t_emb = model.embed_timesteps(torch.full((b,), 500, device=dev))
+    denoise = mdm_cuda.make_fused_denoise(model, mdm_cuda.stack_block_weights(model))
+    with torch.no_grad():
+        assert rel_err(denoise(x_t, t_emb, cond), model.denoise(x_t, None, cond, t_emb=t_emb)) < REL
+
+
 def window_inputs(b, g, dev):
     return (torch.randn(b, 32, SMALL.latent_total_dim, device=dev, generator=g),
             Conditioning(torch.randn(b, 32, SMALL.audio_feat_dim, device=dev, generator=g),
@@ -222,15 +254,28 @@ def rvq_inputs(case, n, q, k, d, dev):
     return x, cb
 
 
-def rvq_kernels_in_one_call(x, cb):
-    """The K3 kernels that one call runs on the card, by the profiler."""
+def rvq_kernels_in_one_call(x, cb, out, idx):
+    """The K3 kernels that one call runs on the card, by the profiler. The
+    profiler now and then drops the records of kernels that ran: a session
+    without any of a call's kernels, and sessions without one of two spin
+    kernels launched around the call, whose result was right. So the call
+    is framed by two spin kernels, its result must equal ``out`` and
+    ``idx``, and a session that does not show both spin kernels is read
+    again, up to five times. A session that shows both is the count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        quantize_cuda.rvq_encode_fused(x, cb)
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "rvq_" in e.key)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100)
+            got = quantize_cuda.rvq_encode_fused(x, cb)
+            torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        assert torch.equal(got[0], out) and torch.equal(got[1], idx)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if sum(e.count for e in kernels if "spin_kernel" in e.key) == 2:
+            return sum(e.count for e in kernels if "rvq_" in e.key)
+    raise AssertionError("five profiler sessions in a row dropped a spin kernel's record")
 
 
 @pytest.mark.parametrize("case", ["random", "duplicated_codes", "rows_on_codes", "bf16_rows", "strided_rows"])
@@ -257,4 +302,4 @@ def test_rvq_encode_kernel_matches_plain(dev, n, qkd, case):
     assert (out - ref)[agree].abs().max() <= 1e-4
     out2, idx2 = quantize_cuda.rvq_encode_fused(x, cb)  # no order of blocks shows in the result
     assert torch.equal(out, out2) and torch.equal(idx, idx2)
-    assert rvq_kernels_in_one_call(x, cb) == quantize_cuda.rvq_kernel_launches(q)
+    assert rvq_kernels_in_one_call(x, cb, out, idx) == quantize_cuda.rvq_kernel_launches(q)

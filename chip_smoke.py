@@ -15,8 +15,15 @@ the batch-256 knee. Last, the prompted body-part CFG path at the width of
 ``configs/diffusion_h3d.yaml``'s MDM: the prompted sampler through K2 against
 the same sampler on the plain f32 ``MDM.denoise``, then a service flush that
 mixes unprompted requests (K1) with two prompt configurations (one K2 call a
-step each, the guidance branches stacked), all decoding through K3. Takes
-about a minute and a half on an H100, the ~10 s build included.
+step each, the guidance branches stacked), all decoding through K3. Around
+these: ``features`` times the host featurization of a request in its parts
+(the C++ rolling max and peak picking beside their numpy versions, the
+STFT and mel projection); ``stream`` drives ``StreamingMotionSession`` at
+full width through K1 and K3 against the offline K1 sampler + decode, each
+of its K3 calls held against the plain version on its own rows;
+``rvq_encode_path`` runs ``RVQVAE.encode`` through K3; ``stream_prompted``
+streams with an upper-body prompt and a style through K2. Takes about two
+minutes on an H100, the ~10 s build included.
 Prints one JSON line per phase, then the ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
@@ -24,6 +31,8 @@ without a CUDA device it exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -33,6 +42,9 @@ import numpy as np
 import torch
 
 from syntalker_tpu_torch import generation as G
+from syntalker_tpu_torch import native
+from syntalker_tpu_torch.data import audio as A
+from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.data.audio import onset_amplitude_features
 from syntalker_tpu_torch.data.stats import identity_pose_stats
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
@@ -40,6 +52,7 @@ from syntalker_tpu_torch.models.denoiser import Conditioning, MDMConfig, build_m
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
 from syntalker_tpu_torch.ops import _build, mdm_cuda, quantize_cuda
 from syntalker_tpu_torch.serving import MotionGenerationService, MotionRequest
+from syntalker_tpu_torch.streaming import StreamingMotionSession
 
 H3D_CONFIG = "configs/diffusion_h3d.yaml"  # the mdm and guidance sections, copied by hand below
 
@@ -54,6 +67,14 @@ SAMPLER_REL = 5e-2  # bf16 weights and matmul inputs against f32, through 4 wind
 SERVE_BATCH, SERVE_SECONDS = 8, 16.0  # 4 windows, 116 latent frames, 464 output frames
 SERVE_LENGTHS_S = (16.0, 12.5, 9.0, 15.2, 6.3)  # five requests of different lengths
 GUIDANCE = {"audio_scale": 1.0, "prompt_scale": 4.0}  # H3D_CONFIG's guidance
+STREAM_SECONDS = 16.0  # 4 windows, as one service request
+STREAM_CHUNKS = (5000, 12345, 40000, 33333, 71000, 100003)  # ragged pushes, then the rest in one
+STREAM_K3_ROWS = (24, 32, 52)  # a stream's decode buffers a part: flush, first window, steady window
+# tests/test_streaming.py's margins of a stream against the whole-clip decode; reported, not held: at full width
+# the decoder reaches past the 16/8-latent margins, in the JAX package alike (tests/test_torch_decode_reach.py)
+DECODE_MARGIN, TRANS_REL = 5e-2, 1e-3
+STREAM_ATOL = 1e-5  # the stream against the same chunks decoded from the offline latents: the same operations
+ENCODE_REL = 1e-4  # the same codes, summed by K3 and by rvq_dequantize in another order, then decoded
 
 DEV = torch.device("cuda")
 
@@ -240,10 +261,10 @@ def phase_gemm(cfg: MDMConfig) -> None:
 
 
 def phase_block_stack(mdm, cfg: MDMConfig) -> dict:
-    """K2 against its plain version and timed: at the service's 8 samples,
-    at the 24, 32 and 40 of the prompted path's 3, 4 and 5 stacked guidance
-    branches (768 to 1,280 rows, where the GEMM takes other tiles), and at
-    the batch-256 knee."""
+    """K2 against its plain version and timed: at the prompted stream's 3
+    samples, at the service's 8, at the 24, 32 and 40 of the prompted path's
+    3, 4 and 5 stacked guidance branches (768 to 1,280 rows, where the GEMM
+    takes other tiles), and at the batch-256 knee."""
     w = mdm_cuda.stack_block_weights(mdm)
     g = torch.Generator(device=DEV).manual_seed(2)
     res = {}
@@ -252,7 +273,7 @@ def phase_block_stack(mdm, cfg: MDMConfig) -> dict:
                                              activation="gelu", batch_first=True, norm_first=True)
     encoder = torch.nn.TransformerEncoder(layer, cfg.num_layers, enable_nested_tensor=False)
     encoder = encoder.to(DEV, torch.bfloat16).eval().requires_grad_(False)
-    for b in (SERVE_BATCH, 3 * SERVE_BATCH, 4 * SERVE_BATCH, 5 * SERVE_BATCH, 256):
+    for b in (3, SERVE_BATCH, 3 * SERVE_BATCH, 4 * SERVE_BATCH, 5 * SERVE_BATCH, 256):
         x = torch.randn(b, 32, cfg.latent_dim, device=DEV, generator=g)
         out = mdm_cuda.block_stack(x, w, num_heads=cfg.num_heads)
         ref = mdm_cuda.block_stack_plain(x, w, num_heads=cfg.num_heads)
@@ -375,6 +396,13 @@ def phase_rvq(codebooks: torch.Tensor) -> dict:
                      kernel_us=rvq_kernel_us(x, codebooks))
         res[n] = entry
         emit({"phase": "parity", "kernel": "rvq_encode", "tol": K3_ATOL, **entry})
+    for n in STREAM_K3_ROWS:
+        x = torch.randn(n, d, device=DEV, generator=g)
+        out, idx = quantize_cuda.rvq_encode_fused(x, codebooks)
+        entry = rvq_check(x, codebooks, out, idx)
+        entry.update(rows=n, blocks=quantize_cuda.rvq_plan(n, q, k, d).blocks,
+                     ms=cuda_ms(lambda: quantize_cuda.rvq_encode_fused(x, codebooks), 10))  # noqa: B023
+        emit({"phase": "parity", "kernel": "rvq_encode", "case": "stream rows", "tol": K3_ATOL, **entry})
     # every code twice: each row's distances tie exactly, and the lower index must win at every layer
     n = SERVE_BATCH * 116
     dup = codebooks.clone()
@@ -613,12 +641,400 @@ def phase_serve_prompted(mdm, diffusion, rvq) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# host featurization, the streaming session and the RVQ encode path
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Mean host ms of ``fn()`` over ``reps`` calls after one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def features_plain(y: np.ndarray) -> np.ndarray:
+    """``onset_amplitude_features`` with the numpy rolling max and peak
+    picking in place of the C++ ones."""
+    env = A.onset_strength(y)
+    rng = env.max() - env.min()
+    if rng > 0:
+        env = (env - env.min()) / rng
+    onset = np.zeros(len(y), np.float32)
+    samples = A.peak_pick_plain(env, **A.peak_pick_args()) * 512
+    onset[samples[samples < len(y)]] = 1.0
+    return np.stack([A.amplitude_envelope_plain(y), onset], axis=1)
+
+
+def phase_features() -> list:
+    """A request's host featurization in its parts, host ms: the rolling max
+    (C++ and numpy), the STFT and mel projection (``onset_strength``, numpy
+    in both), the peak picking (C++ and numpy) and the whole features with
+    each. For the service's 16 s bucket, to which it pads every request, and
+    for the five requests at their own lengths. C++ must equal numpy."""
+    reqs = requests(7)
+    clips = [("bucket", np.resize(reqs[0].audio, int(SERVE_SECONDS * 16000)))]
+    clips += [(f"request_{secs}s", r.audio) for secs, r in zip(SERVE_LENGTHS_S, reqs)]
+    args = A.peak_pick_args()
+    out = []
+    for name, y in clips:
+        env = A.onset_strength(y)
+        env = (env - env.min()) / (env.max() - env.min())
+        assert np.array_equal(A.amplitude_envelope(y), A.amplitude_envelope_plain(y)), name
+        assert np.array_equal(native.peak_pick(env, **args), A.peak_pick_plain(env, **args)), name
+        assert np.array_equal(onset_amplitude_features(y), features_plain(y)), name
+        entry = {"clip": name, "seconds": len(y) / 16000, "cpp_equals_numpy": True,
+                 "rolling_max_ms": host_ms(lambda: A.amplitude_envelope(y)),  # noqa: B023 - called at once
+                 "rolling_max_numpy_ms": host_ms(lambda: A.amplitude_envelope_plain(y)),  # noqa: B023
+                 "stft_mel_ms": host_ms(lambda: A.onset_strength(y)),  # noqa: B023
+                 "peak_pick_ms": host_ms(lambda: native.peak_pick(env, **args)),  # noqa: B023
+                 "peak_pick_numpy_ms": host_ms(lambda: A.peak_pick_plain(env, **args)),  # noqa: B023
+                 "features_ms": host_ms(lambda: onset_amplitude_features(y)),  # noqa: B023
+                 "features_numpy_ms": host_ms(lambda: features_plain(y))}  # noqa: B023
+        emit({"phase": "features", **entry})
+        out.append(entry)
+    return out
+
+
+def stream_session(mdm, diffusion, rvq, **kw) -> StreamingMotionSession:
+    return StreamingMotionSession(mdm=mdm, diffusion=diffusion, rvq_modules=rvq, stats=identity_pose_stats(),
+                                  device=DEV, **kw)
+
+
+def warm_session(make):
+    """A session whose window programs are captured before its first window
+    (``warm_up``). Returns (session, seconds ``warm_up`` took)."""
+    sess = make()
+    t0 = time.perf_counter()
+    sess.warm_up()
+    return sess, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def recorded_k3():
+    """Every K3 call made inside, kept as copies of (rows, codebooks, out,
+    indices) for ``k3_calls_check`` after the run. The launches and their
+    count are the wrapper's own."""
+    calls, fused = [], quantize_cuda.rvq_encode_fused
+
+    def record(x, codebooks):
+        out, idx = fused(x, codebooks)
+        calls.append((x.clone(), codebooks, out.clone(), idx.clone()))
+        return out, idx
+
+    quantize_cuda.rvq_encode_fused = record
+    try:
+        yield calls
+    finally:
+        quantize_cuda.rvq_encode_fused = fused
+
+
+def k3_calls_check(calls) -> dict:
+    """Each recorded K3 call held against the plain version on its own rows
+    (``rvq_check``: indices equal off near ties, output within K3_ATOL)."""
+    checks = [rvq_check(x, cb, out, idx) for x, cb, out, idx in calls]
+    return {"calls": len(calls), "rows": sorted({x.shape[0] for x, *_ in calls}),
+            "near_tie_rows": sum(c["near_tie_rows"] for c in checks),
+            "rows_differing": sum(c["rows_differing"] for c in checks),
+            "max_abs_err": max(c["max_abs_err"] for c in checks), "tol": K3_ATOL}
+
+
+def stream_clip(seed: int):
+    """The features of a 16 s request and its frame word ids."""
+    req = requests(seed)[0]
+    return onset_amplitude_features(req.audio[: int(STREAM_SECONDS * 16000)]), np.asarray(req.words)
+
+
+def push_ragged(sess, feats, words) -> list:
+    """The clip in STREAM_CHUNKS, then the rest, then ``finish``."""
+    segs, pos = [], 0
+    for size in STREAM_CHUNKS + (len(feats),):
+        segs += sess.push_audio(feats[pos : pos + size], words[pos // sess.spf : (pos + size) // sess.spf])
+        pos = min(pos + size, len(feats))
+    return segs + sess.finish()
+
+
+def window_ends(sess, n_windows: int) -> list:
+    return [(w * sess.round_l + sess.pose_length) * sess.spf for w in range(n_windows)]
+
+
+def timed_windows(sess, feats, words, n_windows: int) -> list:
+    """Push the clip one window at a time: host ms of each window and of the
+    flush, each ending in its segment's copy to the host."""
+    ms, pos = [], 0
+    for end in window_ends(sess, n_windows):
+        t0 = time.perf_counter()
+        assert len(sess.push_audio(feats[pos:end], words[pos // sess.spf : end // sess.spf])) == 1
+        ms.append(1e3 * (time.perf_counter() - t0))
+        pos = end
+    sess.push_audio(feats[pos:], words[pos // sess.spf :])
+    t0 = time.perf_counter()
+    sess.finish()
+    return ms + [1e3 * (time.perf_counter() - t0)]
+
+
+def cuda_rows(prof) -> list:
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def profile_steady_window(sess, feats, words, n_windows: int, rvq_kernels: int) -> dict:
+    """One steady window under torch.profiler: its device-busy share of the
+    window's host time and its device->host copies. The first window runs
+    unprofiled; a profile that misses some of the window's ``rvq_kernels``
+    K3 kernels (the profiler drops records now and then) is taken again on
+    the next window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ends = window_ends(sess, n_windows)
+    sess.push_audio(feats[: ends[0]], words[: ends[0] // sess.spf])
+    for w in range(1, n_windows):
+        s0, s1 = ends[w - 1], ends[w]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sess.push_audio(feats[s0:s1], words[s0 // sess.spf : s1 // sess.spf])
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        rows = cuda_rows(prof)
+        if sum(e.count for e in rows if "rvq_" in e.key) == rvq_kernels:
+            break
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    return {"window": w, "window_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_to_host_copies": sum(e.count for e in rows if "DtoH" in e.key),
+            "host_to_device_copies": sum(e.count for e in rows if "HtoD" in e.key),
+            "rvq_kernels": sum(e.count for e in rows if "rvq_" in e.key),
+            "gemm_kernels": sum(e.count for e in rows if "gemm_kernel" in e.key)}
+
+
+def chunked_decode(lat, rvq, sess):
+    """The stream's motion by its definition, from the whole clip's latents
+    (1, T, 1536): each window's decode buffer cut out (the first window's
+    latents; ``lookback`` before a steady window's fresh latents to
+    ``lookahead`` after them; the flush's tail), decoded alone by
+    ``decode_latents``, its emitted frames kept, and the x/z translation
+    velocity integrated over the emitted frames. Returns (axis-angle,
+    translation) as numpy."""
+    lw, la, lb, fresh = sess.lw, sess.lookahead, sess.lookback, sess.fresh_lat
+    n, sq = lat.shape[1], sess.squeeze
+    spans = [(0, lw, 0, lw - la)]  # (buffer start, buffer end, first emitted, end of emitted), latent frames
+    for s in range(lw - la, n - la, fresh):
+        spans.append((s - lb, s + fresh + la, s, s + fresh))
+    spans.append((n - la - lb, n, n - la, n))
+    aa, vel, height = [], [], []
+    for b0, b1, e0, e1 in spans:
+        dec = G.decode_latents(lat[:, b0:b1], rvq_modules=rvq, stats=identity_pose_stats())
+        tr = dec["trans"][0].cpu().numpy()
+        step = np.diff(tr, axis=0, prepend=np.zeros((1, 3), tr.dtype))  # the velocities the decode integrated
+        keep = slice((e0 - b0) * sq, (e1 - b0) * sq)
+        aa.append(dec["axis_angle"][0, keep].cpu().numpy())
+        vel.append(step[keep])
+        height.append(tr[keep, 1])
+    trans = np.cumsum(np.concatenate(vel), axis=0)
+    trans[:, 1] = np.concatenate(height)
+    return np.concatenate(aa), trans
+
+
+def phase_stream(mdm, diffusion, rvq) -> dict:
+    """The streaming session at full width: a 16 s clip's features pushed in
+    ragged chunks through K1 (one call a window) and K3 (three calls a
+    window's decode and three at the flush). Each of the stream's K3 calls
+    is held against the plain version on its own rows (K1 at B=1 is held in
+    the parity phase). The session's bookkeeping is held against the offline
+    K1 sampler on the same audio and noise with each window's decode buffer
+    decoded alone (``chunked_decode``). Beside it, how far the stream lies
+    from the whole clip decoded at once: reported, not held, since the
+    full-width decoder reaches past the 16/8-latent margins. Exact counts
+    from the wrappers and, for K3's kernels and the device->host copies,
+    from a torch.profiler session of a second stream; the cold first window
+    (K1's graph captured at it), the warm windows (captured before, by
+    ``warm_up``) and a steady window's device-busy share."""
+    cfg = mdm.cfg
+    plan = G.plan_windows(int(STREAM_SECONDS * 30))
+    g = torch.Generator(device=DEV).manual_seed(13)
+    feats, words = stream_clip(13)
+    noise = G.draw_noise(plan, 1, g, DEV)
+
+    def make():
+        return stream_session(mdm, diffusion, rvq, noise=noise)
+
+    sess, warm_s = warm_session(make)
+    reset_launches()
+    with recorded_k3() as k3_calls:
+        segs = push_ragged(sess, feats, words)
+    torch.cuda.synchronize()
+    counts = {**mdm_cuda.launches, **quantize_cuda.launches}
+    k3 = k3_calls_check(k3_calls)
+    windows = sess.stream_stats.windows_run
+    per_window = mdm_cuda.window_launches(cfg.num_layers, diffusion.num_steps)
+    rvq_kernels = quantize_cuda.rvq_kernel_launches(6)
+    want = {"ddim_window": windows * per_window, "block_stack": 0, "rvq_encode": 3 * (windows + 1)}
+    assert windows == plan.num_windows and counts == want, (windows, counts, want)
+
+    aa = np.concatenate([s["axis_angle"] for s in segs])
+    tr = np.concatenate([s["trans"] for s in segs])
+    aw = torch.as_tensor(G.window_audio(feats[None], plan), device=DEV)
+    ww = torch.as_tensor(G.window_words(words[None, : plan.n_frames], plan), device=DEV)
+    seed = torch.zeros(1, plan.pre_frames, J.LATENT_DIM, device=DEV)
+    batched = G.make_fused_loop_sampler(mdm, diffusion, plan)(aw, ww, seed, noise)
+    # the offline sampler one window at a time, as the stream runs it: the same shapes, so the same latents; the
+    # sampler over the whole clip encodes all windows in one batch, whose f32 sums reach K1's bf16 inputs
+    # rounded differently, and the discontinuous snap can then take other codes
+    sampler = G.make_fused_loop_sampler(mdm, diffusion, G.plan_windows(plan.pose_length))
+    wins = []
+    for w in range(plan.num_windows):
+        wins.append(sampler(aw[w : w + 1], ww[w : w + 1], seed, noise[w : w + 1]))
+        seed = wins[-1][:, -plan.pre_frames :]
+    lat = torch.cat([wins[0]] + [x[:, plan.pre_frames :] for x in wins[1:]], dim=1)
+    ref_aa, ref_tr = chunked_decode(lat, rvq, sess)
+    assert aa.shape == ref_aa.shape == (plan.out_latent_frames * plan.squeeze, 165), (aa.shape, ref_aa.shape)
+    assert np.isfinite(aa).all() and np.isfinite(tr).all()
+    starts = [s["frame_start"] for s in segs]
+    assert starts == list(np.cumsum([0] + [len(s["axis_angle"]) for s in segs[:-1]]))
+    aa_err = float(np.abs(aa - ref_aa).max())
+    tr_err = float(np.abs(tr - ref_tr).max() / max(1.0, np.abs(ref_tr).max()))
+    # the whole clip decoded at once: equal to the stream as far as the decoder's reach ends inside the margins
+    off = G.decode_latents(lat, rvq_modules=rvq, stats=identity_pose_stats())
+    off_r6, off_tr = off["rot6d"][0].cpu().numpy(), off["trans"][0].cpu().numpy()
+    r6_frame_err = np.abs(np.concatenate([s["rot6d"] for s in segs]) - off_r6).max(-1)
+    whole = {"axis_angle_max_abs_err": float(np.abs(aa - off["axis_angle"][0].cpu().numpy()).max()),
+             "rot6d_max_abs_err": float(r6_frame_err.max()),
+             "frames_rot6d_err_over_margin": np.flatnonzero(r6_frame_err > DECODE_MARGIN).tolist(),
+             "trans_rel_err": float(np.abs(tr - off_tr).max() / max(1.0, np.abs(off_tr).max())),
+             "margins": {"axis_angle": DECODE_MARGIN, "trans_rel": TRANS_REL}}
+    seed_err = rel_err(sess._state["seed"], lat[:, -plan.pre_frames :])
+    batched_err = rel_err(lat, batched)
+
+    # the same stream again under the profiler: K3's kernels and the copies to the host
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in (1, 2):
+        again, _ = warm_session(make)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            push_ragged(again, feats, words)
+            torch.cuda.synchronize()
+        rows = cuda_rows(prof)
+        seen = sum(e.count for e in rows if "rvq_" in e.key)
+        if seen == 3 * (windows + 1) * rvq_kernels:
+            break
+    d2h = sum(e.count for e in rows if "DtoH" in e.key)
+    assert seen == 3 * (windows + 1) * rvq_kernels, seen
+    assert d2h == windows + 1, d2h  # one segment a window and one at the flush
+
+    cold = timed_windows(make(), feats, words, windows)
+    warm = timed_windows(warm_session(make)[0], feats, words, windows)
+    steady = profile_steady_window(warm_session(make)[0], feats, words, windows, 3 * rvq_kernels)
+    assert steady["device_to_host_copies"] == 1, steady
+    out = {"phase": "stream", "windows": windows, "frames": len(aa), "chunks": list(STREAM_CHUNKS),
+           "axis_angle_max_abs_err": aa_err, "axis_angle_tol": STREAM_ATOL, "trans_rel_err": tr_err,
+           "trans_tol": TRANS_REL, "seed_rel_err_vs_offline": seed_err,
+           "reference": "make_fused_loop_sampler a window at a time, each window's decode buffer decoded alone",
+           "whole_clip_decode": whole,
+           "latent_rel_err_batched_vs_windowed_offline": batched_err, "batched_tol": SAMPLER_REL,
+           "launches": counts, "rvq_kernels": seen, "profile_attempts": attempt,
+           "device_to_host_copies": d2h, "warm_up_s": warm_s, "k3_vs_plain": k3,
+           "cold_window_ms": cold[:-1], "cold_flush_ms": cold[-1], "cold_first_window_ms": cold[0],
+           "warm_window_ms": warm[:-1], "warm_flush_ms": warm[-1],
+           "warm_steady_window_ms": float(np.mean(warm[1:-1])), "steady_window_profile": steady}
+    emit(out)
+    assert aa_err <= STREAM_ATOL and tr_err <= TRANS_REL and batched_err <= SAMPLER_REL, (aa_err, tr_err)
+    return out
+
+
+def phase_stream_prompted(mdm, diffusion, rvq) -> dict:
+    """The streaming session on the prompted path: the h3d MDM with the
+    MotionCLIP style input, an upper-body prompt and a style, every DDIM
+    step's three guidance branches in one K2 call, against the same stream
+    on the plain f32 ``MDM.denoise``: the latents of every window (the
+    seed and the tail ring) within SAMPLER_REL; each of the stream's K3
+    calls against the plain version on its own rows. Exact counts."""
+    cfg = mdm.cfg
+    plan = G.plan_windows(int(STREAM_SECONDS * 30))
+    g = torch.Generator(device=DEV).manual_seed(14)
+    feats, words = stream_clip(14)
+    kw = dict(noise=G.draw_noise(plan, 1, g, DEV), guidance=GUIDANCE,
+              style=torch.randn(1, cfg.style_dim, device=DEV, generator=g),
+              prompts={"upper": torch.randn(1, cfg.prompt_dim, device=DEV, generator=g)})
+    sess, warm_s = warm_session(lambda: stream_session(mdm, diffusion, rvq, **kw))
+    reset_launches()
+    ends = window_ends(sess, plan.num_windows)
+    states, ms, pos = [], [], 0
+    with recorded_k3() as k3_calls:
+        for end in ends:
+            t0 = time.perf_counter()
+            assert len(sess.push_audio(feats[pos:end], words[pos // sess.spf : end // sess.spf])) == 1
+            ms.append(1e3 * (time.perf_counter() - t0))
+            states.append({k: v.clone() for k, v in sess._state.items()})
+            pos = end
+        sess.finish()
+    torch.cuda.synchronize()
+    counts = {**mdm_cuda.launches, **quantize_cuda.launches}
+    windows = len(ends)
+    want = {"ddim_window": 0, "block_stack": windows * diffusion.num_steps * mdm_cuda.block_launches(cfg.num_layers),
+            "rvq_encode": 3 * (windows + 1)}
+    assert counts == want, (counts, want)
+    k3 = k3_calls_check(k3_calls)
+
+    def plain(x_t, t_emb, cond):
+        return mdm.denoise(x_t, None, cond, t_emb=t_emb)
+
+    ref = stream_session(mdm, diffusion, rvq, denoise=plain, **kw)
+    errs, pos = [], 0
+    for end, state in zip(ends, states):
+        ref.push_audio(feats[pos:end], words[pos // ref.spf : end // ref.spf])
+        errs.append(max(rel_err(state[k], ref._state[k]) for k in ("seed", "tail")))
+        pos = end
+    out = {"phase": "stream_prompted", "config": H3D_CONFIG + " with the MotionCLIP style input",
+           "parts": ["upper"], "style": True, "branches": 3, "k2_samples": 3, "windows": windows,
+           "reference": "the same stream on MDM.denoise f32", "latent_rel_err": errs, "tol": SAMPLER_REL,
+           "launches": counts, "k3_vs_plain": k3, "warm_up_s": warm_s, "window_ms": ms}
+    emit(out)
+    assert max(errs) <= SAMPLER_REL, errs
+    return out
+
+
+def phase_rvq_encode_path(rvq) -> dict:
+    """``RVQVAE.encode`` on (8, 464, dim) poses of each part through K3, one
+    call each, its indices against the plain version on the same latent off
+    near ties, and ``decode_indices(encode(x))`` against
+    ``latent2origin(map2latent(x))``."""
+    g = torch.Generator(device=DEV).manual_seed(15)
+    out = {}
+    for part, (module, state) in rvq.items():
+        q = module.cfg.quantizer.num_quantizers
+        x = torch.randn(8, 464, module.cfg.input_dim, device=DEV, generator=g)
+        with torch.no_grad():
+            before = quantize_cuda.launches["rvq_encode"]
+            idx = module.encode(x, state)
+            calls = quantize_cuda.launches["rvq_encode"] - before
+            z = module.map2latent(x)
+            decoded = module.decode_indices(idx, state)
+            snapped = module.latent2origin(z, state)
+        rows = z.reshape(-1, z.shape[-1])
+        _, ref_idx = quantize_cuda.rvq_encode_plain(rows, state.codebook)
+        tie = near_tie_rows(rows, state.codebook, ref_idx)
+        agree = (idx.reshape(-1, q) == ref_idx).all(-1)
+        assert calls == 1 and idx.shape == (8, 116, q), (calls, idx.shape)
+        assert bool(agree[~tie].all()), f"{part}: encode differs from the plain version off near ties"
+        err = rel_err(decoded, snapped)
+        entry = {"part": part, "rows": rows.shape[0], "k3_calls": calls, "near_tie_rows": int(tie.sum()),
+                 "rows_differing_from_plain": int((~agree).sum()), "decode_of_encode_rel_err": err,
+                 "tol": ENCODE_REL, "encode_ms": cuda_ms(lambda: module.encode(x, state), 10)}  # noqa: B023
+        emit({"phase": "rvq_encode_path", **entry})
+        assert err <= ENCODE_REL, (part, err)
+        out[part] = entry
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.manual_seed(0)
     phase_build()
+    phase_features()
 
     cfg = MDMConfig()
     diffusion = make_diffusion(steps=1000, timestep_respacing="ddim50")
@@ -633,30 +1049,38 @@ def main() -> int:
     phase_samplers(mdm, cfg, diffusion)
     serve_k1 = phase_serve(mdm, diffusion, rvq, fused_loop=True)
     serve_k2 = phase_serve(mdm, diffusion, rvq, fused_loop=False)
+    stream = phase_stream(mdm, diffusion, rvq)
+    encode = phase_rvq_encode_path(rvq)
     del mdm
     h3d = build_mdm(h3d_config(), seed=1, device=DEV)
     phase_prompted_samplers(h3d, diffusion)
     serve_p = phase_serve_prompted(h3d, diffusion, rvq)
+    del h3d
+    styled = build_mdm(dataclasses.replace(h3d_config(), use_motionclip=True), seed=2, device=DEV)
+    stream_p = phase_stream_prompted(styled, diffusion, rvq)
 
     src = "syntalker_tpu_torch/csrc/"
     k3_row = k3[SERVE_BATCH * 116]
-    rows = [  # (name, source, TPU kernel, timings, kernels launched on the main path and on the prompted
-        #         flush, (error, tolerance))
+    rvq_kernels = quantize_cuda.rvq_kernel_launches(6)
+    rows = [  # (name, source, TPU kernel, timings, kernels launched on the main path, on the prompted flush,
+        #         on the stream (the prompted stream for K2) and on the encode path, (error, tolerance))
         ("ddim_window", src + "mdm_block.cu", "syntalker_tpu/ops/mdm_pallas.py:312", k1[SERVE_BATCH],
          serve_k1["launches"]["ddim_window"], serve_p["launches"]["ddim_window"],
-         {"rel_err": k1[SERVE_BATCH]["rel_err"], "tol": K1_REL}),
+         stream["launches"]["ddim_window"], 0, {"rel_err": k1[SERVE_BATCH]["rel_err"], "tol": K1_REL}),
         ("block_stack", src + "mdm_block.cu", "syntalker_tpu/ops/mdm_pallas.py:157", k2[SERVE_BATCH],
          serve_k2["launches"]["block_stack"], serve_p["launches"]["block_stack"],
-         {"rel_err": k2[SERVE_BATCH]["rel_err"], "tol": K2_REL}),
+         stream_p["launches"]["block_stack"], 0, {"rel_err": k2[SERVE_BATCH]["rel_err"], "tol": K2_REL}),
         ("rvq_encode", src + "rvq_encode.cu", "syntalker_tpu/ops/quantize_pallas.py:33", k3_row,
-         serve_k1["rvq_kernels"], serve_p["rvq_kernels"], {"abs_err": k3_row["max_abs_err"], "tol": K3_ATOL}),
+         serve_k1["rvq_kernels"], serve_p["rvq_kernels"], stream["rvq_kernels"],
+         sum(e["k3_calls"] for e in encode.values()) * rvq_kernels,
+         {"abs_err": k3_row["max_abs_err"], "tol": K3_ATOL}),
     ]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "prompted_flush_launches": prompted,
-         "error_vs_tol": err}
-        for name, source, replaces, r, launches, prompted, err in rows
+         "stream_launches": streamed, "encode_path_launches": encoded, "error_vs_tol": err}
+        for name, source, replaces, r, launches, prompted, streamed, encoded, err in rows
     ]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

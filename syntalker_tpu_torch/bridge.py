@@ -99,18 +99,27 @@ def load_mdm(mdm: MDM, variables: dict) -> MDM:
     return mdm
 
 
+def _load_resnet(res, p: dict) -> None:
+    for j, blk in enumerate(res.blocks):
+        load_conv(blk.conv_dilated, p[f"block_{j}"]["conv_dilated"])
+        load_conv(blk.conv_proj, p[f"block_{j}"]["conv_proj"])
+
+
 @torch.no_grad()
 def load_rvqvae(module: RVQVAE, params: dict) -> RVQVAE:
-    """Copy the decoder half of a flax RVQVAE param tree into ``module``."""
-    p = params.get("params", params)["decoder"]
-    dec = module.decoder
+    """Copy a flax RVQVAE param tree, encoder and decoder, into ``module``."""
+    p = params.get("params", params)
+    enc, dec = module.encoder, module.decoder
+    for name in ("stem", "head"):
+        load_conv(getattr(enc, name), p["encoder"][name])
+    for i, (down, res) in enumerate(zip(enc.down, enc.res)):
+        load_conv(down, p["encoder"][f"down_{i}"])
+        _load_resnet(res, p["encoder"][f"res_{i}"])
     for name in ("stem", "mid", "head"):
-        load_conv(getattr(dec, name), p[name])
+        load_conv(getattr(dec, name), p["decoder"][name])
     for i, (res, up) in enumerate(zip(dec.res, dec.up)):
-        for j, blk in enumerate(res.blocks):
-            load_conv(blk.conv_dilated, p[f"res_{i}"][f"block_{j}"]["conv_dilated"])
-            load_conv(blk.conv_proj, p[f"res_{i}"][f"block_{j}"]["conv_proj"])
-        load_conv(up, p[f"up_{i}"])
+        _load_resnet(res, p["decoder"][f"res_{i}"])
+        load_conv(up, p["decoder"][f"up_{i}"])
     return module
 
 

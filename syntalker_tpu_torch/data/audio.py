@@ -1,16 +1,22 @@
 """Host-side audio featurization: amplitude envelope + onset impulses.
 
-A copy of the numpy path of ``syntalker_tpu/data/audio.py`` that the
-service calls (``onset_amplitude_features``): a rolling max of |x| over
-1024-sample windows, and an onset impulse train from a mel spectral-flux
-envelope with librosa-default peak picking (sr 16 kHz, hop 512). The
-ctypes host ops of ``syntalker_tpu/native`` are not ported yet; these are
-their plain numpy equivalents.
+Counterpart of ``syntalker_tpu/data/audio.py`` for what the service and the
+streaming session feed the model (``onset_amplitude_features``): a rolling
+max of |x| over 1024-sample windows, and an onset impulse train from a mel
+spectral-flux envelope with librosa-default peak picking (sr 16 kHz, hop
+512). The rolling max and the peak picking run in C++
+(:mod:`syntalker_tpu_torch.native`), as JAX's do once ``g++`` built them;
+the STFT and the mel projection stay numpy. ``amplitude_envelope_plain``
+and ``peak_pick_plain`` are the numpy versions the tests hold the C++
+against. WAV loading, mel features and word alignment wait for the CLI
+slice.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from syntalker_tpu_torch import native
 
 
 def _hz_to_mel(f) -> np.ndarray:
@@ -73,8 +79,9 @@ def onset_strength(y: np.ndarray, sr: int = 16000, hop: int = 512) -> np.ndarray
     return np.concatenate([np.zeros(pad, np.float32), flux.astype(np.float32)])
 
 
-def peak_pick(env, *, pre_max, post_max, pre_avg, post_avg, delta, wait) -> np.ndarray:
-    """librosa.util.peak_pick semantics on a 1-D envelope."""
+def peak_pick_plain(env, *, pre_max, post_max, pre_avg, post_avg, delta, wait) -> np.ndarray:
+    """librosa.util.peak_pick semantics on a 1-D envelope; numpy, window
+    means in float32 (the C++ takes them from double prefix sums)."""
     n = len(env)
     peaks = []
     last = -1 - wait
@@ -94,24 +101,32 @@ def peak_pick(env, *, pre_max, post_max, pre_avg, post_avg, delta, wait) -> np.n
 
 def onset_detect_frames(y: np.ndarray, sr: int = 16000, hop: int = 512) -> np.ndarray:
     """Onset frame indices (librosa onset_detect defaults, normalized
-    envelope, no backtracking)."""
+    envelope, no backtracking), peaks picked in C++."""
     env = onset_strength(y, sr, hop)
     rng = env.max() - env.min()
     if rng > 0:
         env = (env - env.min()) / rng
-    return peak_pick(
-        env,
-        pre_max=int(0.03 * sr // hop),
-        post_max=int(0.0 * sr // hop) + 1,
-        pre_avg=int(0.1 * sr // hop),
-        post_avg=int(0.1 * sr // hop) + 1,
-        delta=0.07,
-        wait=int(0.03 * sr // hop),
-    )
+    return native.peak_pick(env, **peak_pick_args(sr, hop))
+
+
+def peak_pick_args(sr: int = 16000, hop: int = 512) -> dict:
+    """librosa onset_detect's peak-picking windows at ``sr`` and ``hop``."""
+    return dict(pre_max=int(0.03 * sr // hop), post_max=int(0.0 * sr // hop) + 1, pre_avg=int(0.1 * sr // hop),
+                post_avg=int(0.1 * sr // hop) + 1, delta=0.07, wait=int(0.03 * sr // hop))
+
+
+def onset_detect_times(y: np.ndarray, sr: int = 16000, hop: int = 512) -> np.ndarray:
+    """Onset times in seconds."""
+    return onset_detect_frames(y, sr, hop) * hop / sr
 
 
 def amplitude_envelope(y: np.ndarray, frame_length: int = 1024) -> np.ndarray:
-    """Rolling max of |x| over frame_length, stride 1, end-padded."""
+    """Rolling max of |x| over frame_length, stride 1, end-padded, in C++."""
+    return native.rolling_max_abs(y, frame_length)
+
+
+def amplitude_envelope_plain(y: np.ndarray, frame_length: int = 1024) -> np.ndarray:
+    """Rolling max of |x| over frame_length, stride 1, end-padded; numpy."""
     if len(y) < frame_length:
         return np.full(len(y), np.abs(y).max() if len(y) else 0.0, np.float32)
     win = np.lib.stride_tricks.sliding_window_view(np.abs(y), frame_length)

@@ -11,10 +11,12 @@ Samplers:
 
 - :func:`sample_windows` — the general sampler: DDPM or DDIM, the per-body-
   part prompt CFG with its guidance branches stacked into one denoise a
-  step (K2 at batch K·B on the card), a MotionCLIP style;
+  step (K2 at batch K·B on the card), a MotionCLIP style; one window of it
+  is :func:`sample_window`;
 - :func:`sample_windows_lean` — the plain reference of the unprompted η=0
   DDIM path (PyTorch f32, the algebraic folds of the JAX lean sampler);
 - :func:`make_fused_loop_sampler` — unprompted, one K1 call per window;
+  one window of it is :func:`fused_window`;
 - :func:`sample_windows_fused` — unprompted, a host loop over steps, one K2
   call per step.
 
@@ -113,7 +115,7 @@ def _stitch(windows, pre: int) -> torch.Tensor:
     return torch.cat([windows[0]] + [w[:, pre:] for w in windows[1:]], dim=1)
 
 
-def _encode_all(mdm: MDM, audio_windows, word_windows, pre: int) -> torch.Tensor:
+def encode_windows(mdm: MDM, audio_windows, word_windows, pre: int) -> torch.Tensor:
     """at_feat of every window in ONE (W·B)-batched encode: it does not
     depend on the seed. Returns (W, B, T_latent, A)."""
     n_w, b = audio_windows.shape[:2]
@@ -124,55 +126,75 @@ def _encode_all(mdm: MDM, audio_windows, word_windows, pre: int) -> torch.Tensor
     return at.reshape((n_w, b) + at.shape[1:])
 
 
-@torch.no_grad()
-def sample_windows(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, word_windows, init_seed, noise, *,
-                   sampler: str = "ddpm", step_noise=None, prompts=None, guidance=None, uncond_audio=False,
-                   style=None, denoise=None):
-    """Windowed sampling with the seed carried; returns stitched latents
-    (B, out_latent_frames, 1536).
-
-    Per window: without ``prompts``, one conditioning (``uncond_audio``
-    applied) and the plain conditioned sampler. With ``prompts`` (part ->
-    (B, prompt_dim)), the audio branch (null prompt), the unconditional
-    branch (null audio and prompt) and one branch per prompted part (null
-    audio, that part's prompt), mixed by
-    :func:`~syntalker_tpu_torch.diffusion.cfg.make_bodypart_cfg_model_fn`
-    with ``guidance`` (``audio_scale``, ``prompt_scale``). ``style``
-    (B, style_dim) enters every encode. ``noise`` is the initial noise of
-    each window (W, B, T, 1536); DDPM also reads ``step_noise``, a tensor
-    (W, S, B, T, 1536) or a callable ``(w, it) -> (B, T, 1536)``.
-    ``denoise(x_t, t_emb, cond) -> x0`` defaults to the block stack through
-    K2 with bf16 weights."""
+def make_denoise_fn(mdm: MDM, diffusion, denoise=None):
+    """``denoise_fn(x_t, t, cond) -> x0`` for :mod:`.diffusion.core`'s
+    samplers, t the original timesteps: the timestep embeddings of the
+    schedule computed once and looked up. ``denoise(x_t, t_emb, cond)``
+    defaults to the block stack through K2 with bf16 weights."""
     if denoise is None:
         denoise = make_fused_denoise(mdm, stack_block_weights(mdm))
-    guidance = guidance or {}
-    dev = init_seed.device
-    tmap = torch.as_tensor(np.asarray(diffusion.timestep_map), dtype=torch.long, device=dev)
+    tmap = torch.as_tensor(np.asarray(diffusion.timestep_map), dtype=torch.long,
+                           device=mdm.input_process.weight.device)
     t_emb_all = mdm.embed_timesteps(tmap)
 
     def denoise_fn(x, t, cond):
         return denoise(x, t_emb_all[torch.searchsorted(tmap, t)], cond)
 
+    return denoise_fn
+
+
+@torch.no_grad()
+def sample_window(mdm: MDM, diffusion, denoise_fn, audio, word, seed, noise, *, sampler: str = "ddpm",
+                  step_noise=None, prompts=None, guidance=None, uncond_audio=False, style=None) -> torch.Tensor:
+    """One window of :func:`sample_windows`: audio (B, S, 2), word (B, F),
+    seed (B, pre, 1536), initial noise (B, T, 1536) -> latents (B, T, 1536).
+    Without ``prompts``, one conditioning (``uncond_audio`` applied) and the
+    plain conditioned sampler. With ``prompts`` (part -> (B, prompt_dim)),
+    the audio branch (null prompt), the unconditional branch (null audio and
+    prompt) and one branch per prompted part (null audio, that part's
+    prompt), mixed by
+    :func:`~syntalker_tpu_torch.diffusion.cfg.make_bodypart_cfg_model_fn`
+    with ``guidance`` (``audio_scale``, ``prompt_scale``), so every step's
+    branches are one denoise call. ``style`` (B, style_dim) enters every
+    encode. DDPM reads ``step_noise`` (S, B, T, 1536) or ``(it) -> noise``."""
+    guidance = guidance or {}
+
+    def encode(**kw):
+        return mdm.encode_cond(audio, word, seed, style=style, **kw)
+
+    if prompts is None:
+        cond = encode(uncond_audio=uncond_audio)
+
+        def model_fn(x, t):
+            return denoise_fn(x, t, cond)
+    else:
+        part_conds = {name: None if prompts.get(name) is None
+                      else encode(uncond_audio=True, prompt=prompts[name]) for name in J.LATENT_SLICES}
+        model_fn = make_bodypart_cfg_model_fn(
+            denoise_fn, encode(uncond_prompt=True), encode(uncond_audio=True, uncond_prompt=True), part_conds,
+            audio_scale=guidance.get("audio_scale", 1.0), prompt_scale=guidance.get("prompt_scale", 4.0))
+    return sample(diffusion, model_fn, noise, method=sampler, step_noise=step_noise)
+
+
+@torch.no_grad()
+def sample_windows(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, word_windows, init_seed, noise, *,
+                   sampler: str = "ddpm", step_noise=None, prompts=None, guidance=None, uncond_audio=False,
+                   style=None, denoise=None):
+    """Windowed sampling with the seed carried; returns stitched latents
+    (B, out_latent_frames, 1536). Each window is :func:`sample_window`;
+    ``noise`` is the initial noise of each window (W, B, T, 1536), DDPM's
+    ``step_noise`` a tensor (W, S, B, T, 1536) or a callable
+    ``(w, it) -> (B, T, 1536)``. ``denoise(x_t, t_emb, cond) -> x0``
+    defaults to the block stack through K2 with bf16 weights."""
+    denoise_fn = make_denoise_fn(mdm, diffusion, denoise)
     seed, outs = init_seed, []
     for w in range(plan.num_windows):
-        def encode(**kw):
-            return mdm.encode_cond(audio_windows[w], word_windows[w], seed, style=style, **kw)
-
-        if prompts is None:
-            cond = encode(uncond_audio=uncond_audio)
-
-            def model_fn(x, t):
-                return denoise_fn(x, t, cond)
-        else:
-            part_conds = {name: None if prompts.get(name) is None
-                          else encode(uncond_audio=True, prompt=prompts[name]) for name in J.LATENT_SLICES}
-            model_fn = make_bodypart_cfg_model_fn(
-                denoise_fn, encode(uncond_prompt=True), encode(uncond_audio=True, uncond_prompt=True), part_conds,
-                audio_scale=guidance.get("audio_scale", 1.0), prompt_scale=guidance.get("prompt_scale", 4.0))
         noise_w = step_noise
         if step_noise is not None:
             noise_w = functools.partial(step_noise, w) if callable(step_noise) else step_noise[w]
-        x = sample(diffusion, model_fn, noise[w], method=sampler, step_noise=noise_w)
+        x = sample_window(mdm, diffusion, denoise_fn, audio_windows[w], word_windows[w], seed, noise[w],
+                          sampler=sampler, step_noise=noise_w, prompts=prompts, guidance=guidance,
+                          uncond_audio=uncond_audio, style=style)
         outs.append(x)
         seed = x[:, -plan.pre_frames :]
     return _stitch(outs, plan.pre_frames)
@@ -203,7 +225,7 @@ def sample_windows_lean(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, wo
     hd = d // cfg.rope_heads
     angles = rope_angles(lw, hd).to(dev)[:, None, :]
 
-    at_all = _encode_all(mdm, audio_windows, word_windows, plan.pre_frames)[:, :, :lw]
+    at_all = encode_windows(mdm, audio_windows, word_windows, plan.pre_frames)[:, :, :lw]
     at_c_all = at_all @ w2_at + bias_c  # (W, B, T, D)
     w_seed = mdm.embed_seed.weight.t() @ w2_style
     b_seed = mdm.embed_seed.bias @ w2_style
@@ -222,6 +244,15 @@ def sample_windows_lean(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, wo
     return _stitch(windows, plan.pre_frames)
 
 
+@torch.no_grad()
+def fused_window(mdm: MDM, fused: FusedDDIMWindow, at_feat, seed, noise) -> torch.Tensor:
+    """One unprompted η=0 DDIM window through K1: the audio/word features
+    ``at_feat`` (B, T, A), the seed (B, pre, 1536) embedded, initial noise
+    (B, T, 1536) -> latents (B, T, 1536). Reads no prompt or style."""
+    seed_emb = mdm.embed_seed(seed.reshape(seed.shape[0], -1))
+    return fused(noise, Conditioning(at_feat=at_feat, seed_emb=seed_emb))
+
+
 def make_fused_loop_sampler(mdm: MDM, diffusion, plan: WindowPlan, *, weights_dtype=torch.bfloat16):
     """Windowed sampler with each window's whole DDIM loop in K1. Returns
     ``sample(audio_windows, word_windows, init_seed, noise) -> latents``."""
@@ -230,11 +261,10 @@ def make_fused_loop_sampler(mdm: MDM, diffusion, plan: WindowPlan, *, weights_dt
 
     @torch.no_grad()
     def sample(audio_windows, word_windows, init_seed, noise):
-        at_all = _encode_all(mdm, audio_windows, word_windows, pre)
+        at_all = encode_windows(mdm, audio_windows, word_windows, pre)
         seed, outs = init_seed, []
         for w in range(plan.num_windows):
-            seed_emb = mdm.embed_seed(seed.reshape(seed.shape[0], -1))
-            x = fused(noise[w], Conditioning(at_feat=at_all[w], seed_emb=seed_emb))
+            x = fused_window(mdm, fused, at_all[w], seed, noise[w])
             outs.append(x)
             seed = x[:, -pre:]
         return _stitch(outs, pre)

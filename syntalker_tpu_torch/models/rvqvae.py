@@ -1,13 +1,16 @@
-"""Body-part RVQ-VAE decode half (PyTorch).
+"""Body-part RVQ-VAE at inference (PyTorch).
 
-Counterpart of ``ResConv1DBlock``, ``Resnet1D``, ``ConvDecoder`` and
-``RVQVAE.latent2origin`` in ``syntalker_tpu/models/rvqvae.py``: the
-continuous latent is snapped onto the residual codebooks and decoded to
-pose features. The snap goes through the hand-written RVQ kernel
-(:func:`syntalker_tpu_torch.ops.quantize_cuda.rvq_quantize_eval_fused`),
-which the JAX package leaves unwired. Public layout ``(B, T, C)``; the
-convolutions run NCW inside, in full f32. The encoder, ``map2latent`` and
-``encode`` wait for a later slice.
+Counterpart of ``ResConv1DBlock``, ``Resnet1D``, ``ConvEncoder``,
+``ConvDecoder`` and the eval entry points of ``RVQVAE`` in
+``syntalker_tpu/models/rvqvae.py``: ``map2latent`` (pose features ->
+continuous latent), ``encode`` (-> residual code indices),
+``decode_indices`` (indices -> pose features) and ``latent2origin`` (latent
+-> snapped -> pose features). The snap and the encode go through the
+hand-written RVQ kernel
+(:func:`syntalker_tpu_torch.ops.quantize_cuda.rvq_encode_fused`), which the
+JAX package leaves unwired. Public layout ``(B, T, C)``; the convolutions
+run NCW inside, in full f32. The train-time forward (straight-through
+quantizer, dropout) waits for the training slice.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from syntalker_tpu_torch.device import full_f32, resolve_device
-from syntalker_tpu_torch.ops.quantize import RVQConfig, RVQState
+from syntalker_tpu_torch.ops.quantize import RVQConfig, RVQState, rvq_dequantize
 from syntalker_tpu_torch.ops.quantize_cuda import rvq_quantize_eval_fused
 
 
@@ -48,8 +51,8 @@ class ResConv1DBlock(nn.Module):
 
 
 class Resnet1D(nn.Module):
-    """Stack of dilated residual blocks; the decoder reverses the dilations
-    ([9, 3, 1] at depth 3)."""
+    """Stack of dilated residual blocks; encoder and decoder both reverse the
+    dilations ([9, 3, 1] at depth 3)."""
 
     def __init__(self, channels: int, depth: int, growth: int, reverse_dilation: bool = True):
         super().__init__()
@@ -62,6 +65,31 @@ class Resnet1D(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return x
+
+
+class ConvEncoder(nn.Module):
+    """Pose features -> latent, T -> T / stride_t**down_t: a "SAME" k=3
+    stem, then per level a strided conv (k = 2·stride, padding stride/2)
+    and a residual stack, then a k=3 head."""
+
+    def __init__(self, cfg: RVQVAEConfig):
+        super().__init__()
+        c = cfg
+        self.stem = nn.Conv1d(c.input_dim, c.width, 3, padding=1)
+        self.down = nn.ModuleList(
+            nn.Conv1d(c.width, c.width, 2 * c.stride_t, stride=c.stride_t, padding=c.stride_t // 2)
+            for _ in range(c.down_t)
+        )
+        self.res = nn.ModuleList(
+            Resnet1D(c.width, c.depth, c.dilation_growth_rate) for _ in range(c.down_t)
+        )
+        self.head = nn.Conv1d(c.width, c.output_emb_width, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.stem(x.transpose(1, 2)))
+        for down, res in zip(self.down, self.res):
+            h = res(down(h))
+        return self.head(h).transpose(1, 2)
 
 
 class ConvDecoder(nn.Module):
@@ -91,7 +119,24 @@ class RVQVAE(nn.Module):
     def __init__(self, cfg: RVQVAEConfig):
         super().__init__()
         self.cfg = cfg
+        self.encoder = ConvEncoder(cfg)
         self.decoder = ConvDecoder(cfg)
+
+    def map2latent(self, x: torch.Tensor) -> torch.Tensor:
+        """Pose features (B, T, input_dim) -> continuous latent (B, T/4, 512)."""
+        with full_f32():
+            return self.encoder(x)
+
+    def encode(self, x: torch.Tensor, state: RVQState) -> torch.Tensor:
+        """Pose features (B, T, input_dim) -> code indices (B, T/4, Q) int32."""
+        _, idx = rvq_quantize_eval_fused(self.map2latent(x), state, self.cfg.quantizer)
+        return idx
+
+    def decode_indices(self, indices: torch.Tensor, state: RVQState) -> torch.Tensor:
+        """Code indices (B, T, Q) -> summed codes -> decoded (B, 4T, input_dim)."""
+        z = rvq_dequantize(indices.long(), state, self.cfg.quantizer)
+        with full_f32():
+            return self.decoder(z)
 
     def latent2origin(self, z: torch.Tensor, state: RVQState) -> torch.Tensor:
         """Continuous latent (B, T, 512) -> snapped -> decoded (B, 4T, input_dim)."""
@@ -101,8 +146,8 @@ class RVQVAE(nn.Module):
 
 
 def build_rvqvae(cfg: RVQVAEConfig, *, seed: int, device=None):
-    """(module, state): default-init decoder and ``randn`` codebooks drawn
-    from ``seed``."""
+    """(module, state): default-init encoder and decoder and ``randn``
+    codebooks drawn from ``seed``."""
     device = resolve_device(device)
     q = cfg.quantizer
     with torch.random.fork_rng(devices=[]):

@@ -4,6 +4,7 @@ entry points refuse to fall back to the CPU silently, and the ctypes
 signatures agree with the C entry points of the CUDA sources."""
 
 import ast
+import ctypes
 import os
 import re
 import subprocess
@@ -18,6 +19,7 @@ from syntalker_tpu_torch.models.denoiser import MDMConfig, build_mdm
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
 from syntalker_tpu_torch.ops import _build
 from syntalker_tpu_torch.serving import MotionGenerationService
+from syntalker_tpu_torch.streaming import StreamingMotionSession
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "syntalker_tpu_torch"
@@ -61,6 +63,8 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
         build_rvqvae(RVQVAEConfig(input_dim=78, width=8, depth=1), seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MotionGenerationService(mdm=None, diffusion=make_diffusion(steps=4), rvq_modules={}, stats=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingMotionSession(mdm=None, diffusion=make_diffusion(steps=4), rvq_modules={}, stats=None)
 
 
 def test_ctypes_signatures_match_the_sources():
@@ -74,3 +78,19 @@ def test_ctypes_signatures_match_the_sources():
         assert set(found) == set(sigs), name
         for fn, argtypes in sigs.items():
             assert len(found[fn].split(",")) == len(argtypes), fn
+
+
+def test_host_ctypes_signatures_match_the_source():
+    """The host C++ of ``native/audio_ops.cpp``: each ``extern "C"`` entry
+    point has the argument count and return type its ctypes signature
+    declares."""
+    from syntalker_tpu_torch import native
+
+    src = native.SRC.read_text()
+    c_api = src[src.index('extern "C"'):]
+    found = {m.group(2): (m.group(1), m.group(3)) for m in re.finditer(r"\b(void|int64_t) (\w+)\(([^)]*)\)", c_api)}
+    assert set(found) == set(native.SIGNATURES)
+    for fn, (restype, argtypes) in native.SIGNATURES.items():
+        ret, args = found[fn]
+        assert len(args.split(",")) == len(argtypes), fn
+        assert restype is ({"void": None, "int64_t": ctypes.c_int64}[ret]), fn

@@ -303,3 +303,66 @@ def test_rvq_encode_kernel_matches_plain(dev, n, qkd, case):
     out2, idx2 = quantize_cuda.rvq_encode_fused(x, cb)  # no order of blocks shows in the result
     assert torch.equal(out, out2) and torch.equal(idx, idx2)
     assert rvq_kernels_in_one_call(x, cb, out, idx) == quantize_cuda.rvq_kernel_launches(q)
+
+
+# the streaming session's decode rows a body part: the flush's tail ring (lookback + lookahead), the first
+# window, the emitted span of a steady window, and a steady window's whole buffer (tail ring + 28 fresh)
+@pytest.mark.parametrize("n", [24, 32, 44, 52])
+def test_rvq_encode_at_stream_rows(dev, n):
+    x, cb = rvq_inputs("random", n, 6, 512, 512, dev)
+    out, idx = quantize_cuda.rvq_encode_fused(x, cb)
+    ref, ref_idx = quantize_cuda.rvq_encode_plain(x, cb)
+    assert quantize_cuda.rvq_plan(n, 6, 512, 512).grid == (16, -(-n // 32))
+    assert torch.equal(idx, ref_idx)  # a few dozen random rows: no near tie to excuse a difference
+    assert (out - ref).abs().max() <= 1e-4
+    assert rvq_kernels_in_one_call(x, cb, out, idx) == quantize_cuda.rvq_kernel_launches(6)
+
+
+def test_steady_stream_window_matches_plain(dev):
+    """Two streamed windows (first, then steady) on the card against the same
+    session on the CPU, which takes the kernels' plain versions with the
+    same bf16 weights and noise: the latents within the kernels' tolerance,
+    the window's decode through K3 and the convolutions against the plain
+    decode of the same latents, and the launches exact."""
+    import copy
+
+    import numpy as np
+
+    from syntalker_tpu_torch.data.stats import identity_pose_stats
+    from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
+    from syntalker_tpu_torch.ops.quantize import RVQConfig
+    from syntalker_tpu_torch.streaming import StreamingMotionSession
+
+    cfg = MDMConfig(latent_dim=256, ff_size=512, num_layers=2, num_heads=4, rope_heads=4, audio_feat_dim=16,
+                    word_feat_dim=16, word_embed_dim=8, vocab_size=32)
+    diffusion = make_diffusion(steps=100, timestep_respacing="ddim4")
+    model = build_mdm(cfg, seed=1, device=dev)
+    rvq = {part: build_rvqvae(RVQVAEConfig(input_dim=dim, width=64, depth=1, quantizer=RVQConfig(2, 64, 512)),
+                              seed=20 + i, device=dev)
+           for i, (part, dim) in enumerate((("upper", 78), ("hands", 180), ("lower", 57)))}
+    noise = torch.randn(2, 1, 32, 1536, device=dev, generator=torch.Generator(dev).manual_seed(4))
+    feats = np.random.default_rng(0).normal(0, 0.1, (533 * 240, 2)).astype(np.float32)
+
+    def session(device, mdm, modules, noise):
+        return StreamingMotionSession(mdm=mdm, diffusion=diffusion, rvq_modules=modules,
+                                      stats=identity_pose_stats(), noise=noise, device=device)
+
+    cpu = session("cpu", copy.deepcopy(model).cpu(),
+                  {p: (copy.deepcopy(m).cpu(), type(s)(s.codebook.cpu())) for p, (m, s) in rvq.items()}, noise.cpu())
+    card = session(dev, model, rvq, noise)
+    before = (mdm_cuda.launches["ddim_window"], quantize_cuda.launches["rvq_encode"])
+    segs = card.push_audio(feats)
+    torch.cuda.synchronize()
+    plan = mdm_cuda.window_launches(cfg.num_layers, 4)
+    # the first window captures K1's graph (a real pass, then the replay); the steady window replays it
+    assert mdm_cuda.launches["ddim_window"] - before[0] == 3 * plan
+    assert quantize_cuda.launches["rvq_encode"] - before[1] == 2 * 3
+    assert [len(s["axis_angle"]) for s in segs] == [96, 112]
+    cpu.push_audio(feats)
+    for name in ("seed", "tail"):
+        assert rel_err(card._state[name].cpu(), cpu._state[name]) < REL, name
+    with torch.no_grad():
+        dec = card._decode(card._state["tail"])
+        ref = cpu._decode(card._state["tail"].cpu())
+    for part, value in dec["parts"].items():
+        assert rel_err(value.cpu(), ref["parts"][part]) < 1e-4, part

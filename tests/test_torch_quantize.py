@@ -117,7 +117,7 @@ def test_rvqvae_bridge_parameter_by_parameter(rvq_pairs):
     np.testing.assert_array_equal(blk.conv_dilated.weight.numpy(),
                                   np.asarray(p["res_1"]["block_0"]["conv_dilated"]["kernel"]).transpose(2, 1, 0))
     np.testing.assert_array_equal(tstate.codebook.numpy(), np.asarray(state.codebook))
-    assert sum(t.numel() for t in module.parameters()) == sum(np.asarray(a).size for a in jax.tree.leaves(p))
+    assert sum(t.numel() for t in module.parameters()) == sum(np.asarray(a).size for a in jax.tree.leaves(params))
 
 
 def test_latent2origin_matches_jax(rvq_pairs):

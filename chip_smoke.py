@@ -22,7 +22,14 @@ STFT and mel projection); ``stream`` drives ``StreamingMotionSession`` at
 full width through K1 and K3 against the offline K1 sampler + decode, each
 of its K3 calls held against the plain version on its own rows;
 ``rvq_encode_path`` runs ``RVQVAE.encode`` through K3; ``stream_prompted``
-streams with an upper-body prompt and a style through K2. Takes about two
+streams with an upper-body prompt and a style through K2. ``generate``
+runs the port's ``generate`` CLI on a synthetic 44.1 kHz stereo wav with a
+TextGrid: ``configs/diffusion_h3d.yaml`` with upper and lower text prompts
+(TMR text pipeline, four guidance branches in one K2 call a step) and
+``configs/diffusion_beat2.yaml`` unprompted in its bf16, each against the
+same clip on the plain f32 ``MDM.denoise``, with exact K2 and K3 counts and
+every K3 call held against the plain version. ``k3_1001`` repeats the K3
+card test's 1,001-row cases, framed by spin kernels. Takes about three
 minutes on an H100, the ~10 s build included.
 Prints one JSON line per phase, then the ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -36,25 +43,33 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
+from scipy.io import wavfile
 
 from syntalker_tpu_torch import generation as G
 from syntalker_tpu_torch import native
+from syntalker_tpu_torch.cli import generate as GEN
+from syntalker_tpu_torch.config import load_config
 from syntalker_tpu_torch.data import audio as A
 from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.data.audio import onset_amplitude_features
 from syntalker_tpu_torch.data.stats import identity_pose_stats
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.models.denoiser import Conditioning, MDMConfig, build_mdm
+from syntalker_tpu_torch.models.tmr import TextPipeline, embed_prompts
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
 from syntalker_tpu_torch.ops import _build, mdm_cuda, quantize_cuda
 from syntalker_tpu_torch.serving import MotionGenerationService, MotionRequest
 from syntalker_tpu_torch.streaming import StreamingMotionSession
 
-H3D_CONFIG = "configs/diffusion_h3d.yaml"  # the mdm and guidance sections, copied by hand below
+H3D_CONFIG = "configs/diffusion_h3d.yaml"  # read through the port's load_config
+BEAT2_CONFIG = "configs/diffusion_beat2.yaml"
 
 # H100 SXM data sheet, dense peaks at the 700 W limit
 PEAK_BF16 = 989e12  # FLOP/s, tensor cores
@@ -75,8 +90,19 @@ STREAM_K3_ROWS = (24, 32, 52)  # a stream's decode buffers a part: flush, first 
 DECODE_MARGIN, TRANS_REL = 5e-2, 1e-3
 STREAM_ATOL = 1e-5  # the stream against the same chunks decoded from the offline latents: the same operations
 ENCODE_REL = 1e-4  # the same codes, summed by K3 and by rvq_dequantize in another order, then decoded
+# the generate phase's clip: 20 s (600 frames, 5 windows, 576 output frames); 16 s would give 4 windows, 464 frames
+GENERATE_SECONDS, GENERATE_SR = 20.0, 44100
+GENERATE_MIN_FRAMES = 480
+GENERATE_PROMPTS = {"upper": "raise both arms above the head", "lower": "step to the left"}
+K3_CARD_ROWS, K3_CARD_REPEATS = 1001, 5  # the K3 card test's row count whose two failures were never diagnosed
 
 DEV = torch.device("cuda")
+
+
+def card_name_and_power_limit() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def emit(obj) -> None:
@@ -448,10 +474,9 @@ def requests(seed: int):
 
 
 def h3d_config() -> MDMConfig:
-    """H3D_CONFIG's MDM (the port has no YAML loader yet): the default widths
-    (latent 512, 8 blocks, 4 heads, ff 1024, vocab 11195) with the TMR
-    prompt of 256 and the BatchNorm wav encoder."""
-    return MDMConfig(use_prompt=True, prompt_dim=256, audio_norm="batch")
+    """H3D_CONFIG's MDM: latent 512, 8 blocks, 4 heads, ff 1024, vocab
+    11195, the TMR prompt of 256 and the BatchNorm wav encoder."""
+    return load_config(H3D_CONFIG).mdm
 
 
 def prompted_requests(seed: int):
@@ -1028,6 +1053,184 @@ def phase_rvq_encode_path(rvq) -> dict:
     return out
 
 
+def phase_k3_card_rows() -> dict:
+    """K3 at K3_CARD_ROWS rows: every case of the card test
+    ``test_rvq_encode_kernel_matches_plain``, run by its own check,
+    K3_CARD_REPEATS times with another seed each time. A failing run keeps
+    its traceback and the call's shapes, strides and dtypes. A wrong result
+    fails the phase after the report; a run where only the profiler's
+    kernel count is off (it drops records now and then) is reported."""
+    import importlib.util
+
+    # by path: a site-packages `tests` package would shadow the repo's namespace package
+    spec = importlib.util.spec_from_file_location("card_tests", Path(__file__).parent / "tests" /
+                                                  "test_torch_kernels_cuda.py")
+    card_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(card_tests)
+    check_rvq_case, rvq_inputs = card_tests.check_rvq_case, card_tests.rvq_inputs
+
+    cases = ("random", "duplicated_codes", "rows_on_codes", "bf16_rows", "strided_rows")
+    runs, failures = 0, []
+    for rep in range(K3_CARD_REPEATS):
+        for qkd in ((6, 512, 512), (4, 64, 128)):
+            for case in cases:
+                runs += 1
+                try:
+                    check_rvq_case(DEV, K3_CARD_ROWS, qkd, case, seed=3 + rep)
+                except Exception as e:  # noqa: BLE001 - kept with its traceback, judged below
+                    last = traceback.extract_tb(e.__traceback__)[-1]
+                    x, cb = rvq_inputs(case, K3_CARD_ROWS, *qkd, DEV, 3 + rep)
+                    failures.append({"repeat": rep, "case": case, "qkd": list(qkd),
+                                     "profiler_count_only": "rvq_kernels_in_one_call" in f"{last.name} {last.line}",
+                                     "x": {"shape": list(x.shape), "stride": list(x.stride()), "dtype": str(x.dtype)},
+                                     "codebooks": {"shape": list(cb.shape), "stride": list(cb.stride())},
+                                     "traceback": traceback.format_exc()})
+    out = {"phase": "k3_1001", "rows": K3_CARD_ROWS, "runs": runs, "failed": len(failures), "failures": failures}
+    emit(out)
+    wrong = [f for f in failures if not f["profiler_count_only"]]
+    assert not wrong, wrong
+    return out
+
+
+def write_generate_inputs(d: Path, vocab_size: int, seconds: float = GENERATE_SECONDS) -> dict:
+    """A synthetic int16 stereo wav at GENERATE_SR (speech-like bursts and
+    pauses, so the resampling, the mono mix and the onsets run), a TextGrid
+    of its words and a vocab JSON whose ids lie under ``vocab_size``."""
+    g = np.random.default_rng(21)
+    n = int(seconds * GENERATE_SR)
+    t = np.arange(n) / GENERATE_SR
+    env = (np.sin(2 * np.pi * 1.7 * t) > -0.2).astype(np.float64)
+    y = 0.3 * env[:, None] * np.stack([np.sin(2 * np.pi * 150 * t), np.sin(2 * np.pi * 210 * t)], axis=1)
+    y += 0.05 * g.standard_normal((n, 2))
+    wav = d / "speech.wav"
+    wavfile.write(str(wav), GENERATE_SR, (np.clip(y, -1, 1) * 32767).astype(np.int16))
+    words = "so we raise our hands and then we step to the side and wave again".split()
+    assert 4 + len(set(words)) <= vocab_size
+    ids = {w: 4 + i for i, w in enumerate(dict.fromkeys(words))}
+    (d / "vocab.json").write_text(json.dumps({"name": "words", "word2index": ids, "word2count": {w: 1 for w in ids}}))
+    marks = [""] + words + [""]
+    edges = np.linspace(0.0, seconds, len(marks) + 1)
+    body = "".join(f'        intervals [{i + 1}]:\n            xmin = {a}\n            xmax = {b}\n'
+                   f'            text = "{m}"\n' for i, (a, b, m) in enumerate(zip(edges[:-1], edges[1:], marks)))
+    tg = d / "speech.TextGrid"
+    tg.write_text(f'File type = "ooTextFile"\nObject class = "TextGrid"\n\nxmin = 0\nxmax = {seconds}\n'
+                  f'tiers? <exists>\nsize = 1\nitem []:\n    item [1]:\n        class = "IntervalTier"\n'
+                  f'        name = "words"\n        xmin = 0\n        xmax = {seconds}\n'
+                  f'        intervals: size = {len(marks)}\n' + body)
+    return {"wav": wav, "textgrid": tg, "vocab": d / "vocab.json"}
+
+
+def phase_generate(name: str, yaml: str, overrides: list, prompts: dict) -> dict:
+    """The port's ``generate`` CLI at full width on the card. First
+    ``main()`` as a user runs it (cold: models built, K2's graph captured,
+    the npz written and checked); then ``generate_clip`` on models and K2
+    weights built once: a warm-up clip, a counted clip (exact K2 and K3
+    counts, every K3 call held against the plain version), a profiled clip
+    (K3's kernels, the device's busy share) and the same clip on the plain
+    f32 ``MDM.denoise``, whose latents must lie within SAMPLER_REL."""
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        cfg0 = load_config(yaml, overrides)
+        files = write_generate_inputs(d, cfg0.mdm.vocab_size)
+        ov = overrides + [f"data.vocab_path={files['vocab']}"]
+        argv = ["-c", yaml, "--wav", str(files["wav"]), "--textgrid", str(files["textgrid"]),
+                "--out", str(d / "out.npz"), "--run-dir", str(d / "run"), *ov]
+        for part, text in prompts.items():
+            argv += [f"--{part}-prompt", text]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = GEN.main(argv)
+        torch.cuda.synchronize()
+        cold_ms = 1e3 * (time.perf_counter() - t0)
+        with np.load(d / "out.npz") as f:
+            npz = {k: f[k] for k in f.files}
+        cfg = load_config(yaml, ov)
+        mdm, rvq, diffusion, stats = models = GEN.load_models(cfg, DEV)
+        frames = npz["poses"].shape[0]
+        assert sorted(npz) == sorted(["poses", "trans", "betas", "expressions", "model", "gender",
+                                      "mocap_frame_rate"]), sorted(npz)
+        assert frames >= GENERATE_MIN_FRAMES and npz["poses"].shape == (frames, 165), npz["poses"].shape
+        assert npz["trans"].shape == (frames, 3) and npz["expressions"].shape == (frames, 100)
+        assert np.isfinite(npz["poses"]).all() and np.isfinite(npz["trans"]).all()
+
+        pipeline = TextPipeline(device=DEV) if prompts else None
+        weights = mdm_cuda.stack_block_weights(mdm)
+        kernel = mdm_cuda.make_fused_denoise(mdm, weights)
+
+        def clip(denoise, **kw):
+            return GEN.generate_clip(cfg, files["wav"], textgrid=str(files["textgrid"]), prompts=prompts,
+                                     generator=torch.Generator(DEV).manual_seed(cfg.train.seed), denoise=denoise,
+                                     pipeline=pipeline, models=models, device=DEV, **kw)
+
+        clip(kernel)  # captures K2's graph at this clip's K·B
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_k3() as k3_calls:
+            res = clip(kernel)
+            torch.cuda.synchronize()
+        warm_ms = 1e3 * (time.perf_counter() - t0)
+        counts = {**mdm_cuda.launches, **quantize_cuda.launches}
+        k3 = k3_calls_check(k3_calls)
+        plan = G.plan_windows(int(GENERATE_SECONDS * cfg.data.pose_fps), pose_length=cfg.data.pose_length,
+                              pre_frames=cfg.pre_frames)
+        branches = 2 + len(prompts) if prompts else 1
+        want = {"ddim_window": 0, "rvq_encode": 3,
+                "block_stack": plan.num_windows * diffusion.num_steps * mdm_cuda.block_launches(cfg.mdm.num_layers)}
+        assert counts == want, (counts, want)
+        rvq_kernels = 3 * quantize_cuda.rvq_kernel_launches(6)
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        for attempt in (1, 2):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                start.record()
+                clip(kernel)
+                end.record()
+                torch.cuda.synchronize()
+            rows = cuda_rows(prof)
+            seen = sum(e.count for e in rows if "rvq_" in e.key)
+            if seen == rvq_kernels:
+                break
+        assert seen == rvq_kernels, (seen, rvq_kernels)
+        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        clip_ms = start.elapsed_time(end)
+
+        def plain(x_t, t_emb, cond):
+            return mdm.denoise(x_t, None, cond, t_emb=t_emb, dtype=torch.float32)
+
+        ref = clip(plain)
+        err = rel_err(res["latents"], ref["latents"])
+        # K2 at this clip's shape (all branches of a step in one call) against its plain version
+        x = torch.randn(branches, plan.latent_window, cfg.mdm.latent_dim, device=DEV,
+                        generator=torch.Generator(DEV).manual_seed(23))
+        k2_err = rel_err(mdm_cuda.block_stack(x, weights, num_heads=cfg.mdm.num_heads),
+                         mdm_cuda.block_stack_plain(x, weights, num_heads=cfg.mdm.num_heads))
+        embed_ms = None
+        if prompts:
+            def embed():
+                out = embed_prompts(cfg, prompts, pipeline)
+                torch.cuda.synchronize()
+                return out
+
+            embed_ms = host_ms(embed)
+    out = {"phase": "generate", "card": card_name_and_power_limit(), "config": yaml, "name": name,
+           "overrides": overrides, "prompts": prompts,
+           "dtype": str(cfg.mdm.dtype), "audio_dtype": str(cfg.mdm.audio_dtype), "seconds": GENERATE_SECONDS,
+           "wav": f"int16 stereo {GENERATE_SR} Hz", "frames": frames, "windows": plan.num_windows,
+           "steps": diffusion.num_steps, "branches": branches, "cold_main_ms": cold_ms, "warm_clip_ms": warm_ms,
+           "profiled_clip_device_ms": clip_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / clip_ms,
+           "profile_attempts": attempt, "tmr_embed_ms": embed_ms, "launches": counts, "rvq_kernels": seen,
+           "k3_vs_plain": k3, "reference": "generate_clip on MDM.denoise f32", "latent_rel_err": err,
+           "tol": SAMPLER_REL, "k2_rel_err_at_clip_shape": k2_err, "k2_tol": K2_REL,
+           "main_latents_rel_err_vs_warm": rel_err(first["latents"], res["latents"])}
+    emit(out)
+    assert err <= SAMPLER_REL and k2_err <= K2_REL, (err, k2_err)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1046,6 +1249,7 @@ def main() -> int:
     k2 = phase_block_stack(mdm, cfg)
     k1 = phase_ddim_window(mdm, cfg, diffusion)
     k3 = phase_rvq(rvq["upper"][1].codebook)
+    phase_k3_card_rows()
     phase_samplers(mdm, cfg, diffusion)
     serve_k1 = phase_serve(mdm, diffusion, rvq, fused_loop=True)
     serve_k2 = phase_serve(mdm, diffusion, rvq, fused_loop=False)
@@ -1058,6 +1262,9 @@ def main() -> int:
     del h3d
     styled = build_mdm(dataclasses.replace(h3d_config(), use_motionclip=True), seed=2, device=DEV)
     stream_p = phase_stream_prompted(styled, diffusion, rvq)
+    del styled
+    gen = {"h3d": phase_generate("h3d", H3D_CONFIG, [], GENERATE_PROMPTS),
+           "beat2": phase_generate("beat2", BEAT2_CONFIG, ["diffusion.timestep_respacing=ddim50", "rvq_ckpts=[]"], {})}
 
     src = "syntalker_tpu_torch/csrc/"
     k3_row = k3[SERVE_BATCH * 116]
@@ -1079,12 +1286,12 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "prompted_flush_launches": prompted,
-         "stream_launches": streamed, "encode_path_launches": encoded, "error_vs_tol": err}
+         "stream_launches": streamed, "encode_path_launches": encoded,
+         "generate_launches": {k: (v["launches"][name] if name != "rvq_encode" else v["rvq_kernels"])
+                               for k, v in gen.items()}, "error_vs_tol": err}
         for name, source, replaces, r, launches, prompted, streamed, encoded, err in rows
     ]})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

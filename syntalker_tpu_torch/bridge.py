@@ -9,11 +9,15 @@ modules, name for name:
 - LayerNorm / GroupNorm / BatchNorm ``scale`` -> ``weight``; the
   BatchNorm ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` /
   ``running_var``;
-- the scan-stacked ``blocks/block/*`` are split on axis 0, and the
+- the scan-stacked ``blocks/block/*`` are split on axis 0 (an unrolled
+  ``block_i`` tree, ``scan_blocks=False``, is read as it is), and the
   head-aligned qkv kernel (L, C, 3, H, hd) is flattened in C order, which
   gives the [q | k | v] column blocks;
-- ``word_embedding``, ``uncond_prompt_embedding`` and the RVQ codebooks
-  (Q, K, D) are carried as they are.
+- flax attention kernels (D, H, hd) and (H, hd, D) are flattened to
+  (D, D) and their (H, hd) biases to (D,);
+- ``word_embedding``, ``uncond_prompt_embedding``, the TMR
+  ``dist_tokens``, the MotionCLIP decoder's ``time_queries`` and the RVQ
+  codebooks (Q, K, D) are carried as they are.
 
 An MDM is loaded from its flax variables: ``{'params': ..., 'batch_stats':
 ...}`` as ``create_mdm`` returns them for ``audio_norm='batch'``, or the bare
@@ -27,7 +31,9 @@ import torch
 
 from syntalker_tpu_torch.device import resolve_device
 from syntalker_tpu_torch.models.denoiser import MDM, MDMConfig, RunningBatchNorm
+from syntalker_tpu_torch.models.motionclip import MotionCLIP, MotionCLIPDecoder
 from syntalker_tpu_torch.models.rvqvae import RVQVAE, RVQVAEConfig
+from syntalker_tpu_torch.models.tmr import ActorAgnosticEncoder, Attention, DistilbertTextEncoder
 from syntalker_tpu_torch.ops.quantize import RVQState
 
 
@@ -38,7 +44,7 @@ def _t(a) -> torch.Tensor:
 def load_dense(linear: torch.nn.Linear, p: dict) -> None:
     linear.weight.copy_(_t(p["kernel"]).reshape(linear.in_features, -1).T)
     if linear.bias is not None:
-        linear.bias.copy_(_t(p["bias"]))
+        linear.bias.copy_(_t(p["bias"]).reshape(-1))
 
 
 def load_conv(conv: torch.nn.Conv1d, p: dict) -> None:
@@ -88,9 +94,8 @@ def load_mdm(mdm: MDM, variables: dict) -> MDM:
         load_dense(getattr(mdm, name), p[name])
     load_dense(mdm.time_mlp.fc1, p["time_mlp"]["fc1"])
     load_dense(mdm.time_mlp.fc2, p["time_mlp"]["fc2"])
-    stacked = p["blocks"]["block"]
     for i, blk in enumerate(mdm.blocks):
-        lp = _layer(stacked, i)
+        lp = _layer(p["blocks"]["block"], i) if "blocks" in p else p[f"block_{i}"]
         load_dense(blk.qkv, lp["qkv"])
         for name in ("proj", "fc1", "fc2"):
             load_dense(getattr(blk, name), lp[name])
@@ -121,6 +126,58 @@ def load_rvqvae(module: RVQVAE, params: dict) -> RVQVAE:
         _load_resnet(res, p["decoder"][f"res_{i}"])
         load_conv(up, p["decoder"][f"up_{i}"])
     return module
+
+
+def load_attention(attn: Attention, p: dict) -> None:
+    for name in ("query", "key", "value", "out"):
+        load_dense(getattr(attn, name), p[name])
+
+
+@torch.no_grad()
+def load_actor_encoder(enc: ActorAgnosticEncoder, p: dict) -> ActorAgnosticEncoder:
+    """A flax ``ActorAgnosticEncoder`` tree (TMR motion side, a text head's
+    ``head``, MotionCLIP's ``encoder``) into ``enc``."""
+    load_dense(enc.skel_embedding, p["skel_embedding"])
+    enc.dist_tokens.copy_(_t(p["dist_tokens"]))
+    for i, blk in enumerate(enc.blocks):
+        bp = p[f"block_{i}"]
+        load_norm(blk.LayerNorm_0, bp["LayerNorm_0"])
+        load_attention(blk.MultiHeadDotProductAttention_0, bp["MultiHeadDotProductAttention_0"])
+        load_norm(blk.LayerNorm_1, bp["LayerNorm_1"])
+        load_dense(blk.Dense_0, bp["Dense_0"])
+        load_dense(blk.Dense_1, bp["Dense_1"])
+    return enc
+
+
+@torch.no_grad()
+def load_tmr_text(head: DistilbertTextEncoder, p: dict) -> DistilbertTextEncoder:
+    """A flax ``DistilbertTextEncoder`` tree (``projection``, ``head``)."""
+    load_dense(head.projection, p["projection"])
+    load_actor_encoder(head.head, p["head"])
+    return head
+
+
+@torch.no_grad()
+def load_motionclip(model: MotionCLIP, p: dict) -> MotionCLIP:
+    """A flax ``MotionCLIP`` tree (``encoder``, ``proj``)."""
+    load_actor_encoder(model.encoder, p["encoder"])
+    load_dense(model.proj, p["proj"])
+    return model
+
+
+@torch.no_grad()
+def load_motionclip_decoder(dec: MotionCLIPDecoder, p: dict) -> MotionCLIPDecoder:
+    """A flax ``MotionCLIPDecoder`` tree."""
+    dec.time_queries.copy_(_t(p["time_queries"]))
+    load_dense(dec.latent_in, p["latent_in"])
+    for i in range(len(dec.cross)):
+        load_norm(dec.ln_q[i], p[f"ln_q{i}"])
+        load_attention(dec.cross[i], p[f"cross{i}"])
+        load_norm(dec.ln_f[i], p[f"ln_f{i}"])
+        load_dense(dec.fc1[i], p[f"fc1_{i}"])
+        load_dense(dec.fc2[i], p[f"fc2_{i}"])
+    load_dense(dec.out, p["out"])
+    return dec
 
 
 def mdm_from_flax(cfg: MDMConfig, variables: dict, *, device=None) -> MDM:

@@ -8,15 +8,42 @@ spectral-flux envelope with librosa-default peak picking (sr 16 kHz, hop
 (:mod:`syntalker_tpu_torch.native`), as JAX's do once ``g++`` built them;
 the STFT and the mel projection stay numpy. ``amplitude_envelope_plain``
 and ``peak_pick_plain`` are the numpy versions the tests hold the C++
-against. WAV loading, mel features and word alignment wait for the CLI
-slice.
+against. For the ``generate`` CLI: ``load_wav_mono`` (PCM or float WAV,
+stereo mixed to mono, polyphase resampling) and ``align_words_by_energy``
+(transcript words over the voiced audio). The mel features and wav2vec2
+features wait for the training slice.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+from typing import Tuple
+
 import numpy as np
+from scipy.io import wavfile
+from scipy.signal import resample_poly
 
 from syntalker_tpu_torch import native
+from syntalker_tpu_torch.data.textgrid import Interval
+
+
+def load_wav_mono(path: str | Path, target_sr: int = 16000) -> Tuple[np.ndarray, int]:
+    """A PCM (int16, int32, uint8) or float WAV as float32 mono at ``target_sr``."""
+    sr, y = wavfile.read(str(path))
+    if y.dtype == np.int16:
+        y = y.astype(np.float32) / 32768.0
+    elif y.dtype == np.int32:
+        y = y.astype(np.float32) / 2147483648.0
+    elif y.dtype == np.uint8:
+        y = (y.astype(np.float32) - 128.0) / 128.0
+    else:
+        y = y.astype(np.float32)
+    if y.ndim > 1:
+        y = y.mean(axis=1)
+    if sr != target_sr:
+        g = np.gcd(int(sr), target_sr)
+        y = resample_poly(y, target_sr // g, int(sr) // g).astype(np.float32)
+    return np.ascontiguousarray(y, np.float32), target_sr
 
 
 def _hz_to_mel(f) -> np.ndarray:
@@ -141,3 +168,50 @@ def onset_amplitude_features(y: np.ndarray, sr: int = 16000) -> np.ndarray:
     samples = onset_detect_frames(y, sr) * 512
     onset[samples[samples < len(y)]] = 1.0
     return np.stack([amp, onset], axis=1)
+
+
+def align_words_by_energy(words: "list[str]", y: np.ndarray, sr: int = 16000, *, frame_length: int = 1024,
+                          silence_rel: float = 0.1, min_pause_s: float = 0.15):
+    """Transcript words -> TextGrid-style intervals, when no aligner is at hand.
+
+    Each word owns an equal share of the clip's cumulative voiced time
+    (voiced: the rolling-max envelope above ``silence_rel`` of its peak) and
+    is emitted over the voiced runs it overlaps, runs merged across dips
+    shorter than ``min_pause_s``. A catch-all silence interval comes last,
+    so frames no word covers resolve to PAD in
+    :func:`syntalker_tpu_torch.data.vocab.words_to_frame_ids`."""
+    words = [w for w in words if w.strip()]
+    duration = len(y) / sr
+    if not words or duration == 0:
+        return [Interval(0.0, duration, "")]
+
+    env = amplitude_envelope(np.abs(y).astype(np.float32), frame_length)
+    hop_t = 1.0 / sr  # the envelope is per sample (rolling max, stride 1)
+    voiced = env > silence_rel * (env.max() + 1e-12)
+    if not voiced.any():
+        return [Interval(0.0, duration, "")]
+
+    # word w owns the cumulative-voiced-time share [w/N, (w+1)/N)
+    cum = np.cumsum(voiced.astype(np.float64))
+    bounds = np.searchsorted(cum, cum[-1] * np.arange(1, len(words)) / len(words))
+    starts = np.concatenate([[0], bounds])
+    ends = np.concatenate([bounds, [len(env)]])
+
+    # voiced runs, merged across sub-pause dips
+    v = np.concatenate([[False], voiced, [False]])
+    d = np.diff(v.astype(np.int8))
+    merged = []
+    for r0, r1 in zip(np.flatnonzero(d == 1), np.flatnonzero(d == -1)):
+        if merged and r0 - merged[-1][1] < min_pause_s * sr:
+            merged[-1] = (merged[-1][0], r1)
+        else:
+            merged.append((r0, r1))
+
+    out = []
+    for w, s0, e0 in zip(words, starts, ends):
+        for r0, r1 in merged:
+            lo, hi = max(s0, r0), min(e0, r1)
+            if hi > lo:
+                out.append(Interval(lo * hop_t, hi * hop_t, w))
+    out.append(Interval(0.0, duration, ""))
+    return out

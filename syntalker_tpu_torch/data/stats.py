@@ -2,13 +2,15 @@
 
 Counterpart of ``PoseStats`` / ``identity_pose_stats`` in
 ``syntalker_tpu/data/stats.py``: the 330-dim rot6d mean/std, sliced per body
-part, plus the 3-dim translation-velocity stats. The arrays stay numpy; the
+part, plus the 3-dim translation-velocity stats, and ``load_pose_stats``
+for the shipped ``mean_std`` files. The arrays stay numpy; the
 denormalizers accept torch tensors and move the stats to their device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,4 +46,15 @@ def identity_pose_stats() -> PoseStats:
         std_full=np.ones(J.ROT6D_DIM, np.float32),
         trans_mean=np.zeros(3, np.float32),
         trans_std=np.ones(3, np.float32),
+    )
+
+
+def load_pose_stats(mean_std_dir: str | Path) -> PoseStats:
+    """The shipped beatx_2_330 / beatx_2_trans statistics from a directory."""
+    d = Path(mean_std_dir)
+    return PoseStats(
+        mean_full=np.load(d / "beatx_2_330_mean.npy").astype(np.float32),
+        std_full=np.load(d / "beatx_2_330_std.npy").astype(np.float32),
+        trans_mean=np.load(d / "beatx_2_trans_mean.npy").astype(np.float32),
+        trans_std=np.load(d / "beatx_2_trans_std.npy").astype(np.float32),
     )

@@ -11,7 +11,11 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
+
+# short dtype names of the configs (``dtype: bf16``)
+DTYPE_ALIASES = {"bf16": "bfloat16", "f32": "float32", "fp32": "float32", "f16": "float16", "fp16": "float16"}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -23,6 +27,18 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def torch_dtype(d) -> torch.dtype:
+    """A torch dtype from a torch dtype, a name (``"bf16"``, ``"float32"``)
+    or anything ``np.dtype`` reads (a numpy or ml_dtypes type)."""
+    if isinstance(d, torch.dtype):
+        return d
+    name = DTYPE_ALIASES.get(d, d) if isinstance(d, str) else np.dtype(d).name
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f"unknown dtype {d!r}")
+    return out
 
 
 @contextlib.contextmanager

@@ -12,12 +12,17 @@ the other name for name.
 
 The WavEncoder norm is GroupNorm (``audio_norm='group'``), BatchNorm on its
 running statistics (``'batch'``, the h3d configuration) or none (``'none'``,
-reference checkpoints with BatchNorm folded into the convs). Left out for
+reference checkpoints with BatchNorm folded into the convs). ``audio_dtype``
+is the compute dtype of the WavEncoder's convolutions (inputs, kernels and
+biases rounded to it, norms in f32) and ``dtype`` that of the plain block
+stack (residual stream included, softmax in f32), as in flax. Left out for
 later slices: train-mode BatchNorm with its momentum, the train-time
-condition dropouts (``cond_mask_prob*``) and drop-path. The TPU lane-fill
+condition dropouts (``cond_mask_prob*``) and drop-path, so ``dropout`` and
+``cond_mask_prob*`` are accepted and unused here, as are the XLA layout
+knobs ``scan_blocks``, ``remat`` and ``audio_conv_pack``. The TPU lane-fill
 rewrites of the flax module (``_pair_packed_conv1d``, the fused
 ``conv1‖down_conv``) are exact rewrites of plain convolutions and are plain
-``nn.Conv1d`` calls here.
+convolutions here.
 """
 
 from __future__ import annotations
@@ -25,11 +30,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from syntalker_tpu_torch.device import full_f32, resolve_device
+from syntalker_tpu_torch.device import full_f32, resolve_device, torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,17 +46,30 @@ class MDMConfig:
     num_layers: int = 8
     num_heads: int = 4
     rope_heads: int = 8  # RoPE is applied over 8 sub-heads of 64
+    dropout: float = 0.1  # drop-path rate; train-time
     audio_feat_dim: int = 256
     word_feat_dim: int = 256
     word_embed_dim: int = 300  # fasttext
     vocab_size: int = 11195
     n_seed: int = 4  # latent seed frames carried between windows
     squeeze_scale: int = 4  # motion frames per latent frame
+    cond_mask_prob: float = 0.3  # train-time prompt dropout
+    cond_mask_prob_audio: float = 0.0  # train-time audio/word dropout
     use_prompt: bool = False  # TMR text prompt through input_process3
     prompt_dim: int = 256
     use_motionclip: bool = False  # MotionCLIP style through input_process_style
     style_dim: int = 512
+    dtype: torch.dtype = torch.float32  # compute dtype of the plain block stack
+    scan_blocks: bool = True  # XLA layout knob; the bridge reads either param layout
+    audio_dtype: torch.dtype = torch.float32  # compute dtype of the WavEncoder's convolutions
+    audio_conv_pack: bool = False  # XLA layout knob; inert here
     audio_norm: str = "group"  # WavEncoder norm: 'group', 'batch' (running statistics) or 'none'
+    remat: bool = False  # train-time; inert here
+
+    def __post_init__(self):
+        # dtypes may come as names or numpy types (the JAX package's configs)
+        object.__setattr__(self, "dtype", torch_dtype(self.dtype))
+        object.__setattr__(self, "audio_dtype", torch_dtype(self.audio_dtype))
 
 
 @dataclasses.dataclass
@@ -97,8 +116,10 @@ class AudioBasicBlock(nn.Module):
     :func:`make_norm`, leaky_relu 0.01. ``pad`` reproduces the 16 kHz →
     30 fps arithmetic."""
 
-    def __init__(self, cin: int, cout: int, stride: int, pad: int, downsample: bool, norm: str = "group"):
+    def __init__(self, cin: int, cout: int, stride: int, pad: int, downsample: bool, norm: str = "group",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv1d(cin, cout, 15, stride=stride, padding=pad)
         self.norm1 = make_norm(norm, cout)
         self.conv2 = nn.Conv1d(cout, cout, 15, padding=7)
@@ -109,10 +130,19 @@ class AudioBasicBlock(nn.Module):
         else:
             self.down_conv = None
 
+    def _conv(self, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+        """The convolution in ``dtype``, its bias added in ``dtype``, then f32
+        for the norm (flax's order)."""
+        if self.dtype == torch.float32:
+            return conv(x)
+        dt = self.dtype
+        h = F.conv1d(x.to(dt), conv.weight.to(dt), None, conv.stride, conv.padding)
+        return (h + conv.bias.to(dt)[:, None]).float()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCW
-        h = F.leaky_relu(self.norm1(self.conv1(x)), 0.01)
-        h = self.norm2(self.conv2(h))
-        sc = x if self.down_conv is None else self.down_norm(self.down_conv(x))
+        h = F.leaky_relu(self.norm1(self._conv(self.conv1, x)), 0.01)
+        h = self.norm2(self._conv(self.conv2, h))
+        sc = x if self.down_conv is None else self.down_norm(self._conv(self.down_conv, x))
         return F.leaky_relu(h + sc, 0.01)
 
 
@@ -121,7 +151,8 @@ class WavEncoder(nn.Module):
     Stride plan 5·6·1·6·1·3 with pads 1700/0/7/0/7/0 maps 16000/30·F
     samples to exactly F frames."""
 
-    def __init__(self, out_dim: int = 256, in_channels: int = 2, norm: str = "group"):
+    def __init__(self, out_dim: int = 256, in_channels: int = 2, norm: str = "group",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         d = out_dim
         plan = [
@@ -134,7 +165,7 @@ class WavEncoder(nn.Module):
         ]
         blocks, cin = [], in_channels
         for c, s, p, down in plan:
-            blocks.append(AudioBasicBlock(cin, c, s, p, down, norm))
+            blocks.append(AudioBasicBlock(cin, c, s, p, down, norm, dtype))
             cin = c
         self.blocks = nn.ModuleList(blocks)
 
@@ -177,7 +208,9 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 class TransformerBlock(nn.Module):
     """Pre-LN block: LayerNorm eps 1e-6, fused qkv without bias (rows
-    [q|k|v], head-major), f32 softmax, exact erf GELU MLP."""
+    [q|k|v], head-major), f32 softmax, exact erf GELU MLP. In another
+    ``dtype`` than f32, weights and activations are rounded to it, LayerNorm
+    takes its statistics in f32 and the softmax runs in f32, as flax does."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int):
         super().__init__()
@@ -190,14 +223,22 @@ class TransformerBlock(nn.Module):
         self.fc2 = nn.Linear(mlp_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+
+        def lin(m, h):
+            return F.linear(h, m.weight.to(dt), None if m.bias is None else m.bias.to(dt))
+
+        def norm(m, h):
+            return F.layer_norm(h.float(), m.normalized_shape, m.weight, m.bias, m.eps).to(dt)
+
         b, n, c = x.shape
         hd = c // self.num_heads
-        qkv = self.qkv(self.norm1(x)).reshape(b, n, 3, self.num_heads, hd)
+        qkv = lin(self.qkv, norm(self.norm1, x)).reshape(b, n, 3, self.num_heads, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, H, N, hd)
-        attn = torch.softmax((q * hd**-0.5) @ k.transpose(-1, -2), dim=-1)
+        attn = torch.softmax(((q * hd**-0.5) @ k.transpose(-1, -2)).float(), dim=-1).to(dt)
         out = (attn @ v).transpose(1, 2).reshape(b, n, c)
-        x = x + self.proj(out)
-        h = self.fc2(F.gelu(self.fc1(self.norm2(x))))
+        x = x + lin(self.proj, out)
+        h = lin(self.fc2, F.gelu(lin(self.fc1, norm(self.norm2, x))))
         return x + h
 
 
@@ -220,7 +261,7 @@ class MDM(nn.Module):
     def __init__(self, cfg: MDMConfig):
         super().__init__()
         c = self.cfg = cfg
-        self.wav_encoder = WavEncoder(c.audio_feat_dim, norm=c.audio_norm)
+        self.wav_encoder = WavEncoder(c.audio_feat_dim, norm=c.audio_norm, dtype=c.audio_dtype)
         self.word_embedding = nn.Parameter(torch.randn(c.vocab_size, c.word_embed_dim) * 0.02)
         self.text_encoder = nn.Linear(c.word_embed_dim, c.word_feat_dim)
         self.mix_audio_text = nn.Linear(c.audio_feat_dim + c.word_feat_dim, c.audio_feat_dim)
@@ -301,17 +342,20 @@ class MDM(nn.Module):
         angles = rope_angles(n, hd).to(xseq.device)[:, None, :]
         return apply_rope(xseq.reshape(b, n, c.rope_heads, hd), angles).reshape(b, n, c.latent_dim)
 
-    def run_blocks(self, xseq: torch.Tensor) -> torch.Tensor:
+    def run_blocks(self, xseq: torch.Tensor, *, dtype=None) -> torch.Tensor:
+        """The block stack in ``dtype`` (default ``cfg.dtype``); f32 out."""
+        xseq = xseq.to(self.cfg.dtype if dtype is None else dtype)
         for blk in self.blocks:
             xseq = blk(xseq)
-        return xseq
+        return xseq.float()
 
-    def denoise(self, x_t, t, cond: Conditioning, *, t_emb=None) -> torch.Tensor:
+    def denoise(self, x_t, t, cond: Conditioning, *, t_emb=None, dtype=None) -> torch.Tensor:
         """x_t (B, T, 1536), t (B,) original timesteps (ignored when t_emb
-        is given) -> x0 prediction (B, T, 1536)."""
+        is given) -> x0 prediction (B, T, 1536); the blocks in ``dtype``
+        (default ``cfg.dtype``)."""
         if t_emb is None:
             t_emb = self.embed_timesteps(t)
-        return self.output_process(self.run_blocks(self.prepare_sequence(x_t, t_emb, cond)))
+        return self.output_process(self.run_blocks(self.prepare_sequence(x_t, t_emb, cond), dtype=dtype))
 
 
 def _mask(flag, like: torch.Tensor) -> torch.Tensor:
@@ -326,3 +370,26 @@ def build_mdm(cfg: MDMConfig, *, seed: int, device=None) -> MDM:
         torch.manual_seed(seed)
         mdm = MDM(cfg)
     return mdm.to(device).eval().requires_grad_(False)
+
+
+def migrate_qkv_kernels(tree, num_heads: int):
+    """Legacy flat qkv kernels -> the head-aligned layout, as in JAX.
+
+    Checkpoints written before the head-aligned layout hold the fused
+    attention kernel flat, ``(C, 3C)`` unrolled or ``(L, C, 3C)``
+    scan-stacked; the head-aligned ``(..., C, 3, H, C // H)`` is the same
+    memory in C order, so this is a reshape. Trees already migrated pass
+    through unchanged. Works on nested dicts of numpy arrays."""
+
+    def walk(node):
+        out = {}
+        for k, v in node.items():
+            if k == "qkv" and isinstance(v, dict) and "kernel" in v:
+                kern = np.asarray(v["kernel"])
+                if kern.ndim in (2, 3) and kern.shape[-1] == 3 * kern.shape[-2]:
+                    c = kern.shape[-2]
+                    v = dict(v, kernel=kern.reshape(kern.shape[:-1] + (3, num_heads, c // num_heads)))
+            out[k] = walk(v) if isinstance(v, dict) else v
+        return out
+
+    return walk(tree)

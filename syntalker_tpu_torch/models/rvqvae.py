@@ -35,6 +35,7 @@ class RVQVAEConfig:
     stride_t: int = 2
     depth: int = 3
     dilation_growth_rate: int = 3
+    dropout_rate: float = 0.2  # train-time
     quantizer: RVQConfig = dataclasses.field(default_factory=RVQConfig)
 
 
@@ -153,6 +154,6 @@ def build_rvqvae(cfg: RVQVAEConfig, *, seed: int, device=None):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         module = RVQVAE(cfg)
-        codebook = torch.randn(q.num_quantizers, q.nb_code, q.code_dim)
+        codebook = torch.randn(1 if q.shared_codebook else q.num_quantizers, q.nb_code, q.code_dim)
     module = module.to(device).eval().requires_grad_(False)
     return module, RVQState(codebook=codebook.to(device))

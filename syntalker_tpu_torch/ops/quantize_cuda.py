@@ -19,7 +19,7 @@ import torch
 
 from syntalker_tpu_torch.device import full_f32
 from syntalker_tpu_torch.ops import _build
-from syntalker_tpu_torch.ops.quantize import RVQConfig, RVQState
+from syntalker_tpu_torch.ops.quantize import RVQConfig, RVQState, layer_codebooks
 
 launches = {"rvq_encode": 0}
 
@@ -132,5 +132,5 @@ def rvq_quantize_eval_fused(z: torch.Tensor, state: RVQState, cfg: RVQConfig):
     """(B, T, D) -> (quantized, indices (B, T, Q)) through K3; the drop-in
     replacement of :func:`syntalker_tpu_torch.ops.quantize.rvq_quantize_eval`."""
     b, t, d = z.shape
-    quant, idx = rvq_encode_fused(z.reshape(b * t, d), state.codebook[: cfg.num_quantizers])
+    quant, idx = rvq_encode_fused(z.reshape(b * t, d), layer_codebooks(state, cfg))
     return quant.reshape(b, t, d), idx.reshape(b, t, cfg.num_quantizers)

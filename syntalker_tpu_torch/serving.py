@@ -216,18 +216,21 @@ class MotionGenerationService:
             done.set()
         return out
 
-    def start(self):
-        """Background batching loop."""
+    def start(self, max_wait_s: Optional[float] = None):
+        """Background batching loop: flush when the bucket fills or the
+        oldest request has waited ``max_wait_s`` (the constructor's value
+        when None)."""
+        wait = self.max_wait_s if max_wait_s is None else max_wait_s
 
         def loop():
             while not self._stop.is_set():
                 with self._lock:
                     n = len(self._queue)
                     oldest = self._queue[0][2] if n else None
-                if n >= self.max_batch or (n and time.perf_counter() - oldest > self.max_wait_s):
+                if n >= self.max_batch or (n and time.perf_counter() - oldest > wait):
                     self.flush()
                 else:
-                    time.sleep(self.max_wait_s / 5)
+                    time.sleep(wait / 5)
 
         self._stop.clear()
         self._thread = threading.Thread(target=loop, daemon=True)

@@ -153,6 +153,23 @@ def test_service_background_loop():
     assert set(svc.results) == {"r0", "r1"}
 
 
+def test_service_start_takes_max_wait_s():
+    """``start(max_wait_s=...)`` as JAX's service takes it: the argument
+    overrides the constructor's wait for the loop. With the constructor's
+    hour-long wait, one request (under the bucket of 4) is flushed only
+    because the argument's 0.1 s has passed."""
+    svc = _service(True, max_wait_s=3600.0)
+    rng = np.random.default_rng(2)
+    svc.start(max_wait_s=0.1)
+    try:
+        ev = svc.submit(MotionRequest(audio=rng.normal(0, 0.1, 16000).astype(np.float32), request_id="bg"))
+        assert ev.wait(timeout=120), "background flush never fired"
+        assert svc.results["bg"].axis_angle.shape == (128, 165)
+    finally:
+        svc.stop()
+    assert svc.max_wait_s == 3600.0
+
+
 def test_service_rejects_prompted_requests():
     """A prompted request to a model without use_prompt raises JAX's
     ValueError; the queue keeps nothing of it."""

@@ -14,12 +14,16 @@ from pathlib import Path
 import pytest
 import torch
 
+from syntalker_tpu_torch.cli import generate as GEN
+from syntalker_tpu_torch.config import load_config
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.models.denoiser import MDMConfig, build_mdm
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
+from syntalker_tpu_torch.models.tmr import TextPipeline, TMRConfig
 from syntalker_tpu_torch.ops import _build
 from syntalker_tpu_torch.serving import MotionGenerationService
 from syntalker_tpu_torch.streaming import StreamingMotionSession
+from syntalker_tpu_torch.train.loop import load_rvq_stack
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "syntalker_tpu_torch"
@@ -65,6 +69,13 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
         MotionGenerationService(mdm=None, diffusion=make_diffusion(steps=4), rvq_modules={}, stats=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StreamingMotionSession(mdm=None, diffusion=make_diffusion(steps=4), rvq_modules={}, stats=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TextPipeline(TMRConfig(num_layers=1))
+    tiny = load_config(None, ["mdm.num_layers=1", "mdm.vocab_size=8", "rvq_width=8", "rvq_depth=1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_rvq_stack(tiny, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GEN.generate_clip(tiny, "missing.wav")
 
 
 def test_ctypes_signatures_match_the_sources():

@@ -8,6 +8,7 @@ and ``load_compiled`` checks. The kernels' plain versions run with f32
 weights, so the port holds JAX's f32 to the summation order."""
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +25,8 @@ from syntalker_tpu.models.denoiser import MDMConfig as JaxMDMConfig
 from syntalker_tpu.models.denoiser import create_mdm
 from syntalker_tpu.models.rvqvae import create_rvqvae
 from syntalker_tpu.ops.quantize import RVQConfig as JaxRVQConfig
-from syntalker_tpu.ops.quantize import rvq_forward
+from syntalker_tpu.ops.quantize import rvq_forward, rvq_quantize_eval
+from syntalker_tpu.ops.rotations import rotation_6d_to_matrix as jax_rotation_6d_to_matrix
 from syntalker_tpu.streaming import StreamingMotionSession as JaxSession
 from syntalker_tpu_torch import bridge
 from syntalker_tpu_torch import generation as G
@@ -34,6 +36,8 @@ from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.models.denoiser import MDMConfig
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig
 from syntalker_tpu_torch.ops.quantize import RVQConfig, RVQState
+from syntalker_tpu_torch.ops.quantize_cuda import rvq_encode_plain
+from syntalker_tpu_torch.ops.rotations import rotation_6d_to_matrix
 from syntalker_tpu_torch.streaming import StreamingMotionSession, _value_fingerprint
 
 from test_torch_prompted import perturb
@@ -208,6 +212,66 @@ def test_unprompted_stream_reads_no_prompt_on_a_prompt_model(prompted_stack):
     assert np.abs(concat(psegs, "trans") - concat(jsegs, "trans")).max() < POSE_ABS
     for key in ("axis_angle", "rot6d"):
         assert np.abs(concat(psegs, key) - concat(jsegs, key)).max() < gap[key] + POSE_ABS, (key, gap)
+
+
+def test_decode_gap_is_located_in_the_rotations_of_the_decoders_parts(prompted_stack, record_property):
+    """Where the two frameworks' decodes of the same latents part (the
+    ~1.2e-4 of the test above), stage by stage on that fixture:
+    1. the snap (K3's plain version against ``rvq_quantize_eval``): the
+       same indices and codes, bit for bit;
+    2. the decoders' part features: f32 convolution order, ≤ 1e-5
+       (2.1e-6 measured);
+    3. ``rotation_6d_to_matrix`` on identical inputs: equal;
+    4. the port's rotations fed JAX's parts: JAX's decode to ≤ 1e-6;
+    5. JAX's own rotations fed the port's parts: JAX's decode moves by as
+       much as the two frameworks differ, over 20 times the parts' gap.
+    So the gap is the decoders' f32 order, amplified by the rot6d
+    Gram-Schmidt of the reference's own math, not a step of the port.
+    The stage gaps are printed (``-s``) and kept as junit properties."""
+    (mdm, params, diffusion, rvq), (_, _, trvq) = prompted_stack
+    plan = JG.plan_windows(N_FRAMES)
+    feats, word_ids = features(2), words(2, JAX_CFG.vocab_size)
+    lat = JG.sample_windows_lean(mdm, params, diffusion, plan, jnp.asarray(JG.window_audio(feats[None], plan)),
+                                 jnp.asarray(JG.window_words(word_ids[None, :N_FRAMES], plan)),
+                                 jnp.zeros((1, plan.pre_frames, J.LATENT_DIM)), jax.random.PRNGKey(7))
+    z = np.asarray(lat) * 5.0
+    jparts, pparts, gaps = {}, {}, {}
+    for name, (lo, hi) in J.LATENT_SLICES.items():
+        module, p, state = rvq[name]
+        tmod, tstate = trvq[name]
+        zp = np.ascontiguousarray(z[..., lo:hi])
+        jq, jidx = rvq_quantize_eval(jnp.asarray(zp), state, Q)
+        pq, pidx = rvq_encode_plain(torch.as_tensor(zp).reshape(-1, 512), tstate.codebook)
+        np.testing.assert_array_equal(pidx.numpy(), np.asarray(jidx).reshape(-1, Q.num_quantizers))
+        np.testing.assert_array_equal(pq.numpy(), np.asarray(jq).reshape(-1, 512))
+        jparts[name] = np.asarray(module.apply({"params": p}, jnp.asarray(zp), state, method="latent2origin"))
+        with torch.no_grad():
+            pparts[name] = tmod.latent2origin(torch.as_tensor(zp), tstate).numpy()
+        gaps[name] = np.abs(pparts[name] - jparts[name]).max()
+    parts_gap = max(gaps.values())
+    assert 0 < parts_gap <= 1e-5, gaps
+
+    r6 = np.random.default_rng(0).normal(size=(1000, 6)).astype(np.float32)
+    np.testing.assert_array_equal(rotation_6d_to_matrix(torch.as_tensor(r6)).numpy(),
+                                  np.asarray(jax_rotation_6d_to_matrix(jnp.asarray(r6))))
+
+    jdec = JG.decode_parts({k: jnp.asarray(v) for k, v in jparts.items()}, stats=jax_identity_stats())
+    jdec_of_port = JG.decode_parts({k: jnp.asarray(v) for k, v in pparts.items()}, stats=jax_identity_stats())
+    with torch.no_grad():
+        pdec_of_jax = G.decode_parts({k: torch.as_tensor(v) for k, v in jparts.items()}, stats=identity_pose_stats())
+        pdec = G.decode_parts({k: torch.as_tensor(v) for k, v in pparts.items()}, stats=identity_pose_stats())
+    readings = {"parts_gap": {k: float(v) for k, v in gaps.items()}}
+    for key in ("axis_angle", "rot6d"):
+        ref = np.asarray(jdec[key])
+        port_rotations = float(np.abs(pdec_of_jax[key].numpy() - ref).max())
+        full = float(np.abs(pdec[key].numpy() - ref).max())
+        amplified = float(np.abs(np.asarray(jdec_of_port[key]) - ref).max())
+        readings[key] = {"port_rotations_of_jax_parts": port_rotations, "jax_rotations_of_port_parts": amplified,
+                         "decode_gap": full, "over_parts_gap": amplified / float(parts_gap)}
+        assert port_rotations <= 1e-6, key
+        assert amplified > 20 * parts_gap and abs(amplified - full) <= 1e-5, (key, parts_gap, amplified, full)
+    print(json.dumps(readings))
+    record_property("stage_gaps", json.dumps(readings))
 
 
 def test_stream_matches_offline_sampler_and_decode(stack):

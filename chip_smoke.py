@@ -29,8 +29,18 @@ TextGrid: ``configs/diffusion_h3d.yaml`` with upper and lower text prompts
 ``configs/diffusion_beat2.yaml`` unprompted in its bf16, each against the
 same clip on the plain f32 ``MDM.denoise``, with exact K2 and K3 counts and
 every K3 call held against the plain version. ``k3_1001`` repeats the K3
-card test's 1,001-row cases, framed by spin kernels. Takes about three
-minutes on an H100, the ~10 s build included.
+card test's 1,001-row cases, framed by spin kernels. ``train`` (last)
+runs the train steps at full width with seeded random weights and
+batches: the RVQ-VAE of ``configs/rvq_beat2.yaml`` (its upper part: the
+lazy-init step held against the same step on the CPU, then 20 steps;
+hands and lower a lazy-init step each), the denoiser of
+``configs/diffusion_beat2.yaml`` on latents of those three encoders (step
+1 in f32 against the CPU, then 20 steps in the yaml's bf16, one step
+profiled) and the prompted denoiser of ``configs/diffusion_h3d.yaml`` (10
+steps); each state is saved, loaded into a fresh model and stepped again,
+bit for bit the uninterrupted step; then ``generate`` runs on the
+checkpoints the phase wrote. Takes about five minutes on an H100, the
+~10 s build included.
 Prints one JSON line per phase, then the ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
@@ -39,6 +49,7 @@ without a CUDA device it exits non-zero before printing anything.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import subprocess
@@ -46,6 +57,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -60,13 +72,21 @@ from syntalker_tpu_torch.data import audio as A
 from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.data.audio import onset_amplitude_features
 from syntalker_tpu_torch.data.stats import identity_pose_stats
+from syntalker_tpu_torch.device import full_f32
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.models.denoiser import Conditioning, MDMConfig, build_mdm
 from syntalker_tpu_torch.models.tmr import TextPipeline, embed_prompts
-from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
+from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae, draw_rvqvae
 from syntalker_tpu_torch.ops import _build, mdm_cuda, quantize_cuda
+from syntalker_tpu_torch.ops.quantize import _tile_to_codebook, code_distances, init_rvq_state
 from syntalker_tpu_torch.serving import MotionGenerationService, MotionRequest
 from syntalker_tpu_torch.streaming import StreamingMotionSession
+from syntalker_tpu_torch.train import optim
+from syntalker_tpu_torch.train.diffusion_trainer import (DiffusionTrainConfig, draw_diffusion, make_diffusion_train_step,
+                                                         make_latent_encoder)
+from syntalker_tpu_torch.train.loop import rvq_config
+from syntalker_tpu_torch.train.rvq_trainer import RVQLossConfig, make_rvq_train_step, rvq_loss
+from syntalker_tpu_torch.train.state import TrainState, create_train_state, load_checkpoint, save_checkpoint
 
 H3D_CONFIG = "configs/diffusion_h3d.yaml"  # read through the port's load_config
 BEAT2_CONFIG = "configs/diffusion_beat2.yaml"
@@ -94,6 +114,15 @@ ENCODE_REL = 1e-4  # the same codes, summed by K3 and by rvq_dequantize in anoth
 GENERATE_SECONDS, GENERATE_SR = 20.0, 44100
 GENERATE_MIN_FRAMES = 480
 GENERATE_PROMPTS = {"upper": "raise both arms above the head", "lower": "step to the left"}
+RVQ_CONFIG = "configs/rvq_beat2.yaml"  # the RVQ-VAE train phase's part, batch, window and optimizer
+TRAIN_STEPS = {"rvq": 20, "diffusion": 20, "prompted": 10}  # after the first step
+TRAIN_SEED = 31
+TRAIN_REL = 1e-4  # the card's f32 step 1 against the CPU's: TF32 off on both, sums in another order
+TRAIN_TIE = 1e-5  # a Gumbel argmax whose top-2 perturbed logits lie within TRAIN_TIE·max|logit| is a near tie
+# step 1's gradients, card against CPU, over the largest gradient: the card's backward runs its convolutions in TF32
+# (operands rounded to 2^-11), the CPU's in f32: a few times 2 * 2^-11 apart; a wrong gradient (a missing term, a
+# sign) would be of the gradient's own order
+TRAIN_GRAD_REL = 3e-3
 K3_CARD_ROWS, K3_CARD_REPEATS = 1001, 5  # the K3 card test's row count whose two failures were never diagnosed
 
 DEV = torch.device("cuda")
@@ -1231,6 +1260,392 @@ def phase_generate(name: str, yaml: str, overrides: list, prompts: dict) -> dict
     return out
 
 
+# ---------------------------------------------------------------------------
+# train phase: the train steps at full width, checkpoints, generate on them
+# ---------------------------------------------------------------------------
+
+
+def timed_steps(step, state: TrainState, batches) -> tuple:
+    """Run ``step`` over ``batches``; (state, last metrics, device ms of each
+    step by CUDA events around it)."""
+    marks = []
+    for batch in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return state, metrics, [a.elapsed_time(b) for a, b in marks]
+
+
+def warm_ms(ms: list) -> float:
+    """Mean of the steps after the first two (allocator and cuDNN warm-up)."""
+    return float(np.mean(ms[2:]))
+
+
+def adam_moments(opt_state):
+    """The ScaleByAdamState inside an optimizer chain."""
+    if isinstance(opt_state, optim.ScaleByAdamState):
+        return opt_state
+    for s in opt_state if isinstance(opt_state, tuple) else ():
+        found = adam_moments(s)
+        if found is not None:
+            return found
+    return None
+
+
+def leaf_errors(got: dict, ref: dict) -> dict:
+    """Per-leaf max |got - ref| / max |ref|: the worst leaf and its value."""
+    errs = {k: float((got[k].detach().cpu().double() - ref[k].detach().cpu().double()).abs().max())
+            / max(float(ref[k].detach().abs().max()), 1e-30) for k in ref}
+    worst = max(errs, key=errs.get)
+    return {"worst_leaf": worst, "rel_err": errs[worst]}
+
+
+def step_vs_cpu(card: TrainState, cpu: TrainState, lr: float, ref_mu: dict = None) -> dict:
+    """Step 1 on the card against the same step on the CPU. Adam's first
+    moment is 0.1 times the (clipped) gradient: the card's (convolution
+    gradients in TF32) may differ from the CPU's (f32) by TRAIN_GRAD_REL of
+    the largest gradient of the model. A bound per leaf would not hold: at
+    random init, leaves whose gradients are 1e-3 of the largest are sums
+    that cancel over the batch, and carry f32 rounding of 1e-3 of their own
+    size even on the CPU (both are reported against ``ref_mu``, an f64
+    gradient, where given). The forward's precision is held by the loss,
+    the indices and the state at TRAIN_REL. Adam's first step moves a param by lr·g / (|g| + eps), which
+    differs between two gradients g and g + d by at most
+    lr·(eps/|g|)·(|d|/|g|): where the CPU's gradient exceeds 1000 times
+    both eps and its distance to the card's, that is under 1e-6·lr, and
+    the params must agree to TRAIN_REL of each leaf's largest; elsewhere
+    (gradients within f32 noise of zero, such as a bias ahead of a norm)
+    within Adam's bound of 2·lr."""
+    mc, mp = adam_moments(card.opt_state).mu, adam_moments(cpu.opt_state).mu
+    top = max(float(v.abs().max()) for v in mp.values())
+    mu_err = max(float((mc[k].cpu() - v).abs().max()) for k, v in mp.items()) / top
+    p_err, p_bound, determined, total = 0.0, 0.0, 0, 0
+    for k, v in cpu.params.items():
+        v = v.detach()
+        d = (card.params[k].detach().cpu() - v).abs()
+        g = mp[k].abs()
+        sure = (g > 1000 * 1e-8 * 0.1) & (g > 1000 * (mc[k].cpu() - mp[k]).abs())
+        determined += int(sure.sum())
+        total += sure.numel()
+        if bool(sure.any()):
+            p_err = max(p_err, float(d[sure].max()) / max(float(v.abs().max()), 1e-30))
+        p_bound = max(p_bound, float(d.max()))
+    out = {"adam_mu_err_over_largest": mu_err, "grad_tol": TRAIN_GRAD_REL,
+           "adam_mu_worst_leaf_card_vs_cpu": leaf_errors(mc, mp), "param_rel_err": p_err,
+           "param_max_abs_diff": p_bound, "determined_share": determined / total, "tol": TRAIN_REL}
+    if ref_mu is not None:
+        top64 = max(float(v.abs().max()) for v in ref_mu.values())
+        out["adam_mu_vs_f64"] = {
+            side: {"err_over_largest": max(float((m[k].detach().cpu().double() - v.cpu()).abs().max())
+                                           for k, v in ref_mu.items()) / top64, "worst_leaf": leaf_errors(m, ref_mu)}
+            for side, m in (("card", mc), ("cpu", mp))}
+    assert mu_err <= TRAIN_GRAD_REL and p_err <= TRAIN_REL and p_bound <= 2 * lr * (1 + 1e-5), out
+    return out
+
+
+def gumbel_tie_rows(z: torch.Tensor, qcfg, draws, idx: torch.Tensor) -> torch.Tensor:
+    """Rows (of the lazy-init step) whose Gumbel-perturbed top-2 logits come
+    within TRAIN_TIE·max|logit| at some layer, along the CPU's residual
+    chain: the codebook of each layer is its lazy init from that chain."""
+    r = z
+    tie = torch.zeros(z.shape[0], dtype=torch.bool)
+    for q in range(qcfg.num_quantizers):
+        cb = _tile_to_codebook(r, qcfg.nb_code, draws.init_noise[q])
+        logits = -code_distances(r, cb) / qcfg.gumbel_temperature - torch.log(-torch.log(draws.gumbel[q]))
+        top2 = logits.topk(2, dim=-1).values
+        tie |= (top2[:, 0] - top2[:, 1]) <= TRAIN_TIE * logits.abs().max(-1).values
+        active = idx[:, q] >= 0
+        r = r - active[:, None] * cb[idx[:, q].clamp_min(0)]
+    return tie
+
+
+def rvq_step_vs_cpu(module, step_card, state, batch, rcfg, tx, loss_cfg) -> tuple:
+    """The lazy-init step on the card and on the CPU from the same params and
+    draws: indices equal off near ties, loss and next quantizer state, and
+    the step's Adam moments and params (``step_vs_cpu``; the warmup's first
+    rate is 0, so the params must stay equal)."""
+    cpu_module = copy.deepcopy(module).cpu()
+    cpu_state = create_train_state(cpu_module, tx, torch.Generator(), quantizer_state=init_rvq_state(rcfg.quantizer))
+    draws = draw_rvqvae(rcfg, batch.shape, state.generator, DEV)
+    cdraws, cbatch = draws.to("cpu"), batch.cpu()
+    with torch.no_grad():
+        _, out = module(batch, state.quantizer_state, train=True, draws=draws)
+        _, ref = cpu_module(cbatch, cpu_state.quantizer_state, train=True, draws=cdraws)
+        z = cpu_module.encoder(cbatch)
+    idx, ref_idx = out.indices.reshape(-1, rcfg.quantizer.num_quantizers).cpu(), ref.indices.reshape(
+        -1, rcfg.quantizer.num_quantizers)
+    tie = gumbel_tie_rows(z.reshape(-1, z.shape[-1]), rcfg.quantizer, cdraws.quantizer, ref_idx)
+    agree = (idx == ref_idx).all(-1)
+    assert bool(agree[~tie].all()), f"train indices differ on {int((~agree & ~tie).sum())} rows without a near tie"
+    # the f64 gradient on the card, the yardstick of both f32 ones
+    m64 = copy.deepcopy(module).double()
+    d64 = copy.deepcopy(draws)
+    d64.quantizer.gumbel = [u.double() for u in d64.quantizer.gumbel]
+    q64 = init_rvq_state(rcfg.quantizer, DEV)
+    q64 = dataclasses.replace(q64, codebook=q64.codebook.double(), code_sum=q64.code_sum.double(),
+                              code_count=q64.code_count.double())
+    rec64, out64 = m64(batch.double(), q64, train=True, draws=d64)
+    loss64, _ = rvq_loss(rec64, batch.double(), out64.commit_loss, loss_cfg)
+    grads64 = torch.autograd.grad(loss64, list(m64.parameters()))
+    ref_mu = {n: 0.1 * g for (n, _), g in zip(m64.named_parameters(), grads64)}
+    del m64, rec64, out64, loss64
+    state, metrics = step_card(state, batch, draws=draws)
+    cpu_state, cpu_metrics = make_rvq_train_step(cpu_module, tx, loss_cfg)(cpu_state, cbatch, draws=cdraws)
+    # codes that a differing row chose on either side take other EMA updates
+    touched = torch.zeros(rcfg.quantizer.num_quantizers, rcfg.quantizer.nb_code, dtype=torch.bool)
+    for q in range(rcfg.quantizer.num_quantizers):
+        for i in (idx, ref_idx):
+            rows = i[~agree, q]
+            touched[q, rows[rows >= 0]] = True
+    qs, qc = state.quantizer_state, cpu_state.quantizer_state
+    state_err = max(rel_err(getattr(qs, n).cpu()[~touched], getattr(qc, n)[~touched])
+                    for n in ("codebook", "code_sum", "code_count"))
+    loss_err = abs(float(metrics["loss"]) - float(cpu_metrics["loss"])) / abs(float(cpu_metrics["loss"]))
+    # a differing row moves its frames' reconstruction: ~1e-3 of the loss at most
+    loss_tol = TRAIN_REL if bool(agree.all()) else 1e-3
+    out = {"near_tie_rows": int(tie.sum()), "rows_differing": int((~agree).sum()), "quantizer_state_rel_err": state_err,
+           "loss_rel_err": loss_err, "loss_tol": loss_tol}
+    assert state_err <= TRAIN_REL and loss_err <= loss_tol, out
+    out.update(step_vs_cpu(state, cpu_state, lr=0.0, ref_mu=ref_mu))
+    return state, metrics, out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode
+    (warnings recorded, not raised) for the round trip's two steps."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark, torch.are_deterministic_algorithms_enabled()
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev[:2]
+        torch.use_deterministic_algorithms(prev[2])
+
+
+def states_equal(a: TrainState, b: TrainState) -> bool:
+    from syntalker_tpu_torch.bridge import optax_state_to_flax
+
+    same = all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+    fa, fb = optax_state_to_flax(a.opt_state, a.layout), optax_state_to_flax(b.opt_state, b.layout)
+
+    def eq(x, y):
+        return all(eq(x[k], y[k]) for k in x) if isinstance(x, dict) else bool(np.array_equal(x, y))
+
+    same &= eq(fa, fb) and a.step == b.step
+    same &= all(torch.equal(a.model_state[k], b.model_state[k]) for k in a.model_state or {})
+    if a.quantizer_state is not None:
+        same &= all(torch.equal(getattr(a.quantizer_state, n), getattr(b.quantizer_state, n))
+                    for n in ("codebook", "code_sum", "code_count"))
+    return bool(same)
+
+
+def round_trip(make, state: TrainState, step, batch, ckpt_dir: Path) -> dict:
+    """Save ``state``, take one more step; load the file into a fresh model
+    and state (``make(seed)`` -> (state, step, module), other initial
+    values) and take the same step: both must agree bit for bit."""
+    path = save_checkpoint(ckpt_dir, state)
+    with deterministic() as caught:
+        state, _ = step(state, batch)
+        fresh, fresh_step, _ = make(TRAIN_SEED + 100)
+        load_checkpoint(path, fresh)
+        fresh, _ = fresh_step(fresh, batch)
+        torch.cuda.synchronize()
+    equal = states_equal(state, fresh)
+    assert equal, "the resumed step differs from the uninterrupted one"
+    return {"checkpoint": path.name, "mb": path.stat().st_size / 2**20, "resumed_step_bit_for_bit": equal,
+            "nondeterminism_warnings": sorted({str(w.message).split(".")[0] for w in caught})}, state
+
+
+def busy_share(step, state: TrainState, batch) -> dict:
+    """One step under torch.profiler: its kernels' device time over the
+    step's time (CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        state, _ = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in cuda_rows(prof)) / 1e3
+    step_ms = start.elapsed_time(end)
+    return {"profiled_step_ms": step_ms, "device_busy_ms": busy, "device_busy_share": busy / step_ms,
+            "kernels": sum(e.count for e in cuda_rows(prof))}
+
+
+def train_rvq(part: str, steps: int, d: Path, overrides=(), batch=None) -> tuple:
+    """An RVQ-VAE of ``configs/rvq_beat2.yaml`` for one body part: the
+    lazy-init step (held against the CPU for the yaml's part), then
+    ``steps`` steps, then the round trip. Returns (phase dict, checkpoint,
+    (module, quantizer state))."""
+    cfg = load_config(RVQ_CONFIG, list(overrides))
+    rt = cfg.rvq_train
+    rcfg = rvq_config(cfg, part)
+    tx = optim.make_rvq_optimizer(rt.lr, rt.warmup_iters, rt.milestones, rt.gamma)
+    loss_cfg = RVQLossConfig(commit_weight=rt.commit_weight)
+
+    def make(seed):
+        module = build_rvqvae(rcfg, seed=seed, device=DEV)[0]
+        state = create_train_state(module, tx, torch.Generator(DEV).manual_seed(seed),
+                                   quantizer_state=init_rvq_state(rcfg.quantizer, DEV))
+        return state, make_rvq_train_step(module, tx, loss_cfg), module
+
+    state, step, module = make(TRAIN_SEED)
+    g = torch.Generator(DEV).manual_seed(TRAIN_SEED + 1)
+    b = batch or rt.batch_size
+
+    def batch_of():
+        return torch.randn(b, rt.window, rcfg.input_dim, generator=g, device=DEV)
+
+    out = {"part": part, "input_dim": rcfg.input_dim, "width": rcfg.width, "depth": rcfg.depth,
+           "codebooks": [rcfg.quantizer.num_quantizers, rcfg.quantizer.nb_code, rcfg.quantizer.code_dim],
+           "batch": b, "window": rt.window}
+    torch.cuda.reset_peak_memory_stats()
+    first = batch_of()
+    if part == rt.body_part:
+        state, _, out["step1_vs_cpu"] = rvq_step_vs_cpu(module, step, state, first, rcfg, tx, loss_cfg)
+    else:
+        state, _ = step(state, first)
+    if steps:
+        state, metrics, ms = timed_steps(step, state, [batch_of() for _ in range(steps)])
+        out.update(steps=steps, warm_step_ms=warm_ms(ms), step_ms=ms,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+                   **{k: float(v) for k, v in metrics.items()})
+        # the yardstick of the backward's precision: the same step with its gradients in full f32, where cuDNN
+        # picks FFT algorithms with a large workspace (the train step leaves the backward at PyTorch's TF32 default)
+        torch.cuda.reset_peak_memory_stats()
+        with full_f32():
+            state, _, f32_ms = timed_steps(step, state, [batch_of() for _ in range(2)])
+        out["full_f32_backward"] = {"step_ms": f32_ms[-1], "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
+        rt_out, state = round_trip(make, state, step, batch_of(), d / f"rvq_{part}_rt")
+        out["round_trip"] = rt_out
+    else:
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    emit({"phase": "train", "card": card_name_and_power_limit(), "model": f"rvq_{part}", **out})
+    assert all(np.isfinite(v) for v in out.values() if isinstance(v, float))
+    path = save_checkpoint(d / f"rvq_{part}", state)
+    return out, path, (module, state.quantizer_state)
+
+
+def train_mdm(yaml: str, overrides: list, steps: int, d: Path, latent_fn=None, check_cpu: bool = False,
+              batch=None, name: str = "") -> tuple:
+    """A denoiser of ``yaml`` (+ overrides): optionally step 1 in f32
+    against the CPU, then ``steps`` timed steps of the config as it
+    stands, a profiled step, the round trip. Returns (phase dict,
+    checkpoint path)."""
+    cfg = load_config(yaml, overrides)
+    b = batch or cfg.train.batch_size
+    frames = cfg.data.pose_length
+    diffusion = make_diffusion(steps=cfg.diffusion.steps)
+    tx = optim.make_diffusion_optimizer(cfg.train.lr, cfg.train.grad_clip)
+    tcfg = DiffusionTrainConfig(cfg.pre_frames, cfg.latent_scale)
+    g = torch.Generator(DEV).manual_seed(TRAIN_SEED + 2)
+
+    def batch_of(mcfg):
+        x = {"audio": torch.randn(b, round(16000 / 30 * frames), 2, generator=g, device=DEV) * 0.1,
+             "word": torch.randint(0, mcfg.vocab_size, (b, frames), generator=g, device=DEV)}
+        x["latent_in"] = (latent_fn(b, frames) if latent_fn is not None else
+                          torch.randn(b, frames // mcfg.squeeze_scale, mcfg.latent_total_dim, generator=g, device=DEV))
+        if mcfg.use_prompt:
+            x["prompt"] = torch.randn(b, mcfg.prompt_dim, generator=g, device=DEV)
+        return x
+
+    def make_for(mcfg):
+        def make(seed):
+            mdm = build_mdm(mcfg, seed=seed, device=DEV)
+            state = create_train_state(mdm, tx, torch.Generator(DEV).manual_seed(seed))
+            return state, make_diffusion_train_step(mdm, diffusion, tx, tcfg), mdm
+
+        return make
+
+    out = {"config": yaml, "name": name, "overrides": overrides, "dtype": str(cfg.mdm.dtype),
+           "audio_dtype": str(cfg.mdm.audio_dtype), "audio_norm": cfg.mdm.audio_norm, "use_prompt": cfg.mdm.use_prompt,
+           "batch": b, "frames": frames, "diffusion_steps": diffusion.num_steps}
+    if check_cpu:
+        f32 = load_config(yaml, overrides + ["mdm.dtype=f32", "mdm.audio_dtype=f32"]).mdm
+        state, step, mdm = make_for(f32)(TRAIN_SEED)
+        cpu_mdm = copy.deepcopy(mdm).cpu()
+        cpu_state = create_train_state(cpu_mdm, tx, torch.Generator())
+        batch = batch_of(f32)
+        draws = draw_diffusion(mdm, diffusion, batch["latent_in"].shape, state.generator, DEV)
+        state, m = step(state, batch, draws=draws)
+        cpu_state, cm = make_diffusion_train_step(cpu_mdm, diffusion, tx, tcfg)(
+            cpu_state, {k: v.cpu() for k, v in batch.items()}, draws=draws.to("cpu"))
+        loss_err = abs(float(m["predict_x0_loss"]) - float(cm["predict_x0_loss"])) / abs(float(cm["predict_x0_loss"]))
+        stats_err = max((rel_err(v.cpu(), cpu_state.model_state[k]) for k, v in (state.model_state or {}).items()),
+                        default=0.0)
+        assert loss_err <= TRAIN_REL and stats_err <= TRAIN_REL, {"loss_rel_err": loss_err, "stats_rel_err": stats_err}
+        out["step1_f32_vs_cpu"] = {"loss_rel_err": loss_err, "batch_stats_rel_err": stats_err,
+                                   **step_vs_cpu(state, cpu_state, lr=cfg.train.lr)}
+        del state, step, mdm, cpu_state, cpu_mdm
+    make = make_for(cfg.mdm)
+    state, step, _ = make(TRAIN_SEED)
+    stats0 = {k: v.clone() for k, v in (state.model_state or {}).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, ms = timed_steps(step, state, [batch_of(cfg.mdm) for _ in range(steps + 1)])
+    out.update(steps=steps + 1, warm_step_ms=warm_ms(ms), step_ms=ms, loss=float(metrics["predict_x0_loss"]),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30)
+    assert np.isfinite(out["loss"])
+    if stats0:
+        moved = max(float((state.model_state[k] - v).abs().max()) for k, v in stats0.items())
+        assert moved > 0, "the running statistics did not move"
+        out["running_stats_max_move"] = moved
+    out["profile"] = busy_share(step, state, batch_of(cfg.mdm))
+    rt_out, state = round_trip(make, state, step, batch_of(cfg.mdm), d / f"{name}_rt")
+    out["round_trip"] = rt_out
+    path = save_checkpoint(d / name, state)
+    emit({"phase": "train", "card": card_name_and_power_limit(), "model": name, **out})
+    return out, path
+
+
+def phase_train(generate: bool = True, rvq_overrides=(), mdm_overrides=(), batches=None) -> dict:
+    """The train steps at full width: the RVQ-VAE of ``configs/rvq_beat2.yaml``
+    (its upper part: lazy init held against the CPU, 20 steps; hands and
+    lower a lazy-init step each, so that ``generate`` has three trained
+    encoders), the denoiser of ``configs/diffusion_beat2.yaml`` (step 1 in
+    f32 against the CPU, 20 steps as configured, in bf16, on latents of the
+    three encoders through ``make_latent_encoder``), the prompted denoiser
+    of ``configs/diffusion_h3d.yaml`` (10 steps, the BatchNorm statistics
+    move), each saved and resumed bit for bit; then the ``generate`` phase
+    on the checkpoints it wrote (K2 and K3 on weights the port trained)."""
+    batches = batches or {}
+    out = {"phase": "train", "card": card_name_and_power_limit()}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        rvq_paths, stack = [], {}
+        for part in ("upper", "hands", "lower"):
+            steps = TRAIN_STEPS["rvq"] if part == load_config(RVQ_CONFIG).rvq_train.body_part else 0
+            res, path, stack[part] = train_rvq(part, steps, d, rvq_overrides, batches.get("rvq"))
+            out[f"rvq_{part}"] = res
+            rvq_paths.append(str(path))
+        encode = make_latent_encoder(stack, identity_pose_stats(), latent_scale=load_config(BEAT2_CONFIG).latent_scale)
+        g = torch.Generator(DEV).manual_seed(TRAIN_SEED + 3)
+
+        def latents(b, frames):
+            feats = [torch.randn(b, frames, n, generator=g, device=DEV) for n in (78, 180, 54, 3)]
+            return encode(*feats)
+
+        out["diffusion"], mdm_path = train_mdm(BEAT2_CONFIG, list(mdm_overrides), TRAIN_STEPS["diffusion"], d,
+                                               latent_fn=latents, check_cpu=True, batch=batches.get("mdm"),
+                                               name="beat2")
+        out["prompted"], _ = train_mdm(H3D_CONFIG, list(mdm_overrides), TRAIN_STEPS["prompted"], d,
+                                       batch=batches.get("mdm"), name="h3d")
+        if generate:
+            ov = ["diffusion.timestep_respacing=ddim50", f"rvq_ckpts=[{','.join(rvq_paths)}]", f"test_ckpt={mdm_path}",
+                  *mdm_overrides]
+            out["generate"] = phase_generate("trained", BEAT2_CONFIG, ov, {})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1265,6 +1680,7 @@ def main() -> int:
     del styled
     gen = {"h3d": phase_generate("h3d", H3D_CONFIG, [], GENERATE_PROMPTS),
            "beat2": phase_generate("beat2", BEAT2_CONFIG, ["diffusion.timestep_respacing=ddim50", "rvq_ckpts=[]"], {})}
+    gen["trained"] = phase_train()["generate"]
 
     src = "syntalker_tpu_torch/csrc/"
     k3_row = k3[SERVE_BATCH * 116]

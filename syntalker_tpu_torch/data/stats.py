@@ -4,7 +4,8 @@ Counterpart of ``PoseStats`` / ``identity_pose_stats`` in
 ``syntalker_tpu/data/stats.py``: the 330-dim rot6d mean/std, sliced per body
 part, plus the 3-dim translation-velocity stats, and ``load_pose_stats``
 for the shipped ``mean_std`` files. The arrays stay numpy; the
-denormalizers accept torch tensors and move the stats to their device.
+normalizers and denormalizers accept torch tensors and move the stats to
+their device.
 """
 
 from __future__ import annotations
@@ -30,6 +31,13 @@ class PoseStats:
     std_full: np.ndarray  # (330,)
     trans_mean: np.ndarray  # (3,)
     trans_std: np.ndarray  # (3,)
+
+    def normalize_part(self, x: torch.Tensor, part: str) -> torch.Tensor:
+        idx = _PART_IDX[part]
+        return (x - _like(self.mean_full[idx], x)) / _like(self.std_full[idx], x)
+
+    def normalize_trans(self, v: torch.Tensor) -> torch.Tensor:
+        return (v - _like(self.trans_mean, v)) / _like(self.trans_std, v)
 
     def denormalize_part(self, x: torch.Tensor, part: str) -> torch.Tensor:
         idx = _PART_IDX[part]

@@ -1,6 +1,6 @@
-"""DDPM/DDIM core: the q-process and the samplers (PyTorch).
+"""DDPM/DDIM core: the q-process, the training loss and the samplers (PyTorch).
 
-Counterpart of ``syntalker_tpu/diffusion/core.py`` at inference: the model
+Counterpart of ``syntalker_tpu/diffusion/core.py``: the model
 callback is ``model_fn(x_t, t) -> pred_x0`` with t the ORIGINAL timestep
 indices (B,); the prediction target is x0 and the DDPM variance is
 FIXED_SMALL (the posterior variance). The samplers run a host loop over the
@@ -9,8 +9,8 @@ respaced steps in iteration order (iteration it is step i = S-1-it).
 JAX's threefry key chain has no PyTorch counterpart, so the samplers take
 their noise from the caller: the initial noise as a tensor, and for DDPM and
 η > 0 DDIM the per-step noise ``step_noise``, either a tensor indexed by the
-iteration (S, B, T, C) or a callable ``(it) -> (B, T, C)``. The training
-loss waits for the training slice.
+iteration (S, B, T, C) or a callable ``(it) -> (B, T, C)``; the training
+loss takes its timesteps and noise as tensors.
 """
 
 from __future__ import annotations
@@ -37,6 +37,27 @@ def q_posterior_mean(params: DiffusionParams, x_start, x_t, t) -> torch.Tensor:
 
 def predict_eps_from_xstart(params: DiffusionParams, x_t, t, x0) -> torch.Tensor:
     return (params.gather("sqrt_recip_alphas_cumprod", t) * x_t - x0) / params.gather("sqrt_recipm1_alphas_cumprod", t)
+
+
+def smooth_l1(a: torch.Tensor, b: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    """Elementwise Huber / SmoothL1 (torch semantics, beta 1)."""
+    d = torch.abs(a - b)
+    return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+
+
+def training_loss(params: DiffusionParams, model_fn: ModelFn, x_start: torch.Tensor, t: torch.Tensor,
+                  noise: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample x0-prediction SmoothL1 loss (B,) at sampled-index
+    timesteps t; with a (B, T) validity mask, normalized by (#valid frames
+    × C)."""
+    x_t = q_sample(params, x_start, t, noise)
+    t_orig = torch.as_tensor(params.timestep_map, dtype=torch.long, device=t.device)[t]
+    loss = smooth_l1(model_fn(x_t, t_orig), x_start)
+    if mask is None:
+        return loss.mean((1, 2))
+    m = mask.to(loss.dtype)
+    valid = torch.clamp(m.sum(1), min=1.0)
+    return (loss * m[..., None]).sum((1, 2)) / (valid * x_start.shape[-1])
 
 
 def _noise_at(step_noise: Optional[StepNoise], it: int) -> torch.Tensor:

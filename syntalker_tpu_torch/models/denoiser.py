@@ -1,26 +1,34 @@
 """MDM transformer denoiser over the concatenated body-part latent (PyTorch).
 
-Counterpart of ``syntalker_tpu/models/denoiser.py`` at inference:
-``MDMConfig``, the ``WavEncoder`` conv pyramid, ``encode_cond`` (audio and
-word features, the TMR text prompt with its learned null embedding, the
-MotionCLIP style with a zero null, and the guidance masks of each) /
-``embed_timesteps`` / ``denoise`` (with the ``input_process3`` prompt and
-``input_process_style`` style concats) / ``run_blocks``. The public methods
-keep the JAX layout ``(B, T, C)``; the convolutions transpose to NCW inside.
-Parameter names mirror the flax tree so that ``bridge.py`` maps one onto
-the other name for name.
+Counterpart of ``syntalker_tpu/models/denoiser.py``: ``MDMConfig``, the
+``WavEncoder`` conv pyramid, ``encode_cond`` (audio and word features, the
+TMR text prompt with its learned null embedding, the MotionCLIP style with a
+zero null, and the guidance masks of each) / ``embed_timesteps`` /
+``denoise`` (with the ``input_process3`` prompt and ``input_process_style``
+style concats) / ``run_blocks``, and ``apply_word_embedding``. The public
+methods keep the JAX layout ``(B, T, C)``; the convolutions transpose to
+NCW inside. Parameter names mirror the flax tree so that ``bridge.py`` maps
+one onto the other name for name.
 
-The WavEncoder norm is GroupNorm (``audio_norm='group'``), BatchNorm on its
-running statistics (``'batch'``, the h3d configuration) or none (``'none'``,
-reference checkpoints with BatchNorm folded into the convs). ``audio_dtype``
-is the compute dtype of the WavEncoder's convolutions (inputs, kernels and
-biases rounded to it, norms in f32) and ``dtype`` that of the plain block
-stack (residual stream included, softmax in f32), as in flax. Left out for
-later slices: train-mode BatchNorm with its momentum, the train-time
-condition dropouts (``cond_mask_prob*``) and drop-path, so ``dropout`` and
-``cond_mask_prob*`` are accepted and unused here, as are the XLA layout
-knobs ``scan_blocks``, ``remat`` and ``audio_conv_pack``. The TPU lane-fill
-rewrites of the flax module (``_pair_packed_conv1d``, the fused
+The WavEncoder norm is GroupNorm (``audio_norm='group'``), flax's BatchNorm
+(``'batch'``, the h3d configuration: batch statistics in training mode,
+running statistics in eval mode) or none (``'none'``, reference
+checkpoints with BatchNorm folded into the convs). ``audio_dtype`` is the
+compute dtype of the WavEncoder's convolutions (inputs, kernels and biases
+rounded to it, norms in f32) and ``dtype`` that of the plain block stack
+(residual stream included, softmax in f32), as in flax.
+
+Training mode (``module.train()``) turns on the BatchNorm batch statistics
+and the train-time randomness of flax's ``train=True``: the condition
+dropouts (``cond_mask_prob`` swaps the prompt for the null prompt and the
+style for zeros, ``cond_mask_prob_audio`` zeroes audio and words) and
+per-sample drop-path at rate ``dropout`` after attention and MLP. JAX
+draws these from flax's ``make_rng`` streams, which PyTorch cannot replay:
+here they come as explicit masks (:class:`TrainDraws`, made by
+:func:`draw_train`). ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``). The XLA layout knobs ``scan_blocks`` (read by
+the bridge) and ``audio_conv_pack`` are inert; the TPU lane-fill rewrites
+of the flax module (``_pair_packed_conv1d``, the fused
 ``conv1‖down_conv``) are exact rewrites of plain convolutions and are plain
 convolutions here.
 """
@@ -28,11 +36,12 @@ convolutions here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from syntalker_tpu_torch.device import full_f32, resolve_device, torch_dtype
@@ -46,15 +55,15 @@ class MDMConfig:
     num_layers: int = 8
     num_heads: int = 4
     rope_heads: int = 8  # RoPE is applied over 8 sub-heads of 64
-    dropout: float = 0.1  # drop-path rate; train-time
+    dropout: float = 0.1  # drop-path rate, in training
     audio_feat_dim: int = 256
     word_feat_dim: int = 256
     word_embed_dim: int = 300  # fasttext
     vocab_size: int = 11195
     n_seed: int = 4  # latent seed frames carried between windows
     squeeze_scale: int = 4  # motion frames per latent frame
-    cond_mask_prob: float = 0.3  # train-time prompt dropout
-    cond_mask_prob_audio: float = 0.0  # train-time audio/word dropout
+    cond_mask_prob: float = 0.3  # prompt and style dropout, in training
+    cond_mask_prob_audio: float = 0.0  # audio/word dropout, in training
     use_prompt: bool = False  # TMR text prompt through input_process3
     prompt_dim: int = 256
     use_motionclip: bool = False  # MotionCLIP style through input_process_style
@@ -63,8 +72,8 @@ class MDMConfig:
     scan_blocks: bool = True  # XLA layout knob; the bridge reads either param layout
     audio_dtype: torch.dtype = torch.float32  # compute dtype of the WavEncoder's convolutions
     audio_conv_pack: bool = False  # XLA layout knob; inert here
-    audio_norm: str = "group"  # WavEncoder norm: 'group', 'batch' (running statistics) or 'none'
-    remat: bool = False  # train-time; inert here
+    audio_norm: str = "group"  # WavEncoder norm: 'group', 'batch' or 'none'
+    remat: bool = False  # recompute each block in the backward
 
     def __post_init__(self):
         # dtypes may come as names or numpy types (the JAX package's configs)
@@ -89,15 +98,71 @@ def _groups(c: int) -> int:
     return g
 
 
-class RunningBatchNorm(nn.BatchNorm1d):
-    """BatchNorm1d on its running statistics (eps 1e-5) whatever the
-    module's mode: the train-mode statistics wait for the training slice."""
+@dataclasses.dataclass
+class TrainDraws:
+    """The train-time masks of one forward. ``cond`` maps "audio",
+    "prompt" and "style" to (B,) bool masks, True where the condition is
+    dropped; a missing entry drops nothing. ``drop_path`` holds the
+    (num_layers, 2, B) bool keep masks of each block's attention and MLP
+    branches, or None when the rate is 0."""
 
-    def __init__(self, c: int):
-        super().__init__(c, eps=1e-5)
+    cond: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    drop_path: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "TrainDraws":
+        dp = None if self.drop_path is None else self.drop_path.to(device)
+        return TrainDraws({k: v.to(device) for k, v in self.cond.items()}, dp)
+
+
+def draw_train(cfg: MDMConfig, batch: int, generator: torch.Generator, device=None) -> TrainDraws:
+    """The masks of one train forward from ``generator``: a Bernoulli per
+    sample for each condition dropout the model has (audio+word at
+    ``cond_mask_prob_audio``, prompt and style at ``cond_mask_prob``), then
+    the drop-path keep masks at 1 - ``dropout``."""
+    def bern(p):
+        return torch.rand(batch, generator=generator, device=device) < p
+
+    cond = {}
+    if cfg.cond_mask_prob_audio > 0:
+        cond["audio"] = bern(cfg.cond_mask_prob_audio)
+    if cfg.use_prompt and cfg.cond_mask_prob > 0:
+        cond["prompt"] = bern(cfg.cond_mask_prob)
+    if cfg.use_motionclip and cfg.cond_mask_prob > 0:
+        cond["style"] = bern(cfg.cond_mask_prob)
+    drop_path = None
+    if cfg.dropout > 0:
+        drop_path = torch.rand(cfg.num_layers, 2, batch, generator=generator, device=device) < 1.0 - cfg.dropout
+    return TrainDraws(cond, drop_path)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over NCW (momentum 0.9, eps 1e-5). In training
+    mode it normalizes by the batch statistics, taken in f32 as flax takes
+    them (the variance is E[x²] - E[x]², biased, clamped at 0), and moves
+    the running statistics r <- 0.9·r + 0.1·batch with that biased
+    variance (``torch.nn.BatchNorm1d`` would store the unbiased one). In
+    eval mode it normalizes by the running statistics."""
+
+    def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        x = x.float()
+        mean = x.mean((0, 2))
+        var = torch.clamp((x * x).mean((0, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
 
 
 def make_norm(kind: str, c: int) -> nn.Module:
@@ -105,7 +170,7 @@ def make_norm(kind: str, c: int) -> nn.Module:
     if kind == "group":
         return nn.GroupNorm(_groups(c), c, eps=1e-6)
     if kind == "batch":
-        return RunningBatchNorm(c)
+        return BatchNorm(c)
     if kind == "none":
         return nn.Identity()
     raise ValueError(f"unknown audio_norm {kind!r}: 'group', 'batch' or 'none'")
@@ -222,7 +287,9 @@ class TransformerBlock(nn.Module):
         self.fc1 = nn.Linear(dim, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None, rate: float = 0.0) -> torch.Tensor:
+        """``keep`` (2, B) bool: drop-path keep masks of the attention and
+        MLP branches at ``rate`` (training); None keeps both."""
         dt = x.dtype
 
         def lin(m, h):
@@ -237,9 +304,17 @@ class TransformerBlock(nn.Module):
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, H, N, hd)
         attn = torch.softmax(((q * hd**-0.5) @ k.transpose(-1, -2)).float(), dim=-1).to(dt)
         out = (attn @ v).transpose(1, 2).reshape(b, n, c)
-        x = x + lin(self.proj, out)
+        x = x + drop_path(lin(self.proj, out), None if keep is None else keep[0], rate)
         h = lin(self.fc2, F.gelu(lin(self.fc1, norm(self.norm2, x))))
-        return x + h
+        return x + drop_path(h, None if keep is None else keep[1], rate)
+
+
+def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """Per-sample drop-path: x · keep / (1 - rate) with a (B,) keep mask;
+    no mask is the identity."""
+    if keep is None or rate <= 0.0:
+        return x
+    return x * keep.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1)) / (1.0 - rate)
 
 
 class TimestepMLP(nn.Module):
@@ -282,18 +357,24 @@ class MDM(nn.Module):
 
     def encode_cond(self, audio: torch.Tensor, word: torch.Tensor, seed: torch.Tensor, *,
                     prompt: Optional[torch.Tensor] = None, style: Optional[torch.Tensor] = None,
-                    uncond_audio=False, uncond_prompt=False, uncond_style=False) -> Conditioning:
+                    uncond_audio=False, uncond_prompt=False, uncond_style=False,
+                    draws: Optional[TrainDraws] = None) -> Conditioning:
         """audio (B, S, 2) raw 16 kHz channels, word (B, F) ids, seed
         (B, n_seed, 1536), prompt (B, prompt_dim), style (B, style_dim) ->
         per-latent-frame conditioning. Each ``uncond_*`` is a bool or a (B,)
         mask that swaps the condition for its null: zero audio and word
         features, the learned null prompt (also taken when ``prompt`` is
-        None), a zero style (also when ``style`` is None)."""
+        None), a zero style (also when ``style`` is None). In training mode
+        ``draws.cond`` drops conditions to the same nulls first."""
         c = self.cfg
+        drop = draws.cond if (self.training and draws is not None) else {}
         with full_f32():
             audio_feat = self.wav_encoder(audio)
         text_feat = self.text_encoder(self.word_embedding[word])
         b = audio_feat.shape[0]
+        if "audio" in drop:
+            keep = 1.0 - drop["audio"].float().reshape(-1, 1, 1)
+            audio_feat, text_feat = audio_feat * keep, text_feat * keep
         keep_a = 1.0 - _mask(uncond_audio, audio_feat).reshape(-1, 1, 1)
         audio_feat, text_feat = audio_feat * keep_a, text_feat * keep_a
         # the conv arithmetic can overshoot the word-frame count by a frame
@@ -310,11 +391,16 @@ class MDM(nn.Module):
             null = self.uncond_prompt_embedding
             if prompt is None:
                 prompt = null.expand(b, -1)
+            if "prompt" in drop:
+                dp = drop["prompt"].float().reshape(-1, 1)
+                prompt = prompt * (1.0 - dp) + null * dp
             mask_p = _mask(uncond_prompt, at).reshape(-1, 1)
             prompt_feat = prompt * (1.0 - mask_p) + null * mask_p
         if c.use_motionclip:
             if style is None:
                 style = at.new_zeros(b, c.style_dim)
+            if "style" in drop:
+                style = style * (1.0 - drop["style"].float().reshape(-1, 1))
             style_feat = style * (1.0 - _mask(uncond_style, at).reshape(-1, 1))
         return Conditioning(at_feat=at, seed_emb=seed_emb, prompt_feat=prompt_feat, style_feat=style_feat)
 
@@ -342,20 +428,35 @@ class MDM(nn.Module):
         angles = rope_angles(n, hd).to(xseq.device)[:, None, :]
         return apply_rope(xseq.reshape(b, n, c.rope_heads, hd), angles).reshape(b, n, c.latent_dim)
 
-    def run_blocks(self, xseq: torch.Tensor, *, dtype=None) -> torch.Tensor:
-        """The block stack in ``dtype`` (default ``cfg.dtype``); f32 out."""
-        xseq = xseq.to(self.cfg.dtype if dtype is None else dtype)
-        for blk in self.blocks:
-            xseq = blk(xseq)
+    def run_blocks(self, xseq: torch.Tensor, *, dtype=None, draws: Optional[TrainDraws] = None) -> torch.Tensor:
+        """The block stack in ``dtype`` (default ``cfg.dtype``); f32 out. In
+        training mode with a drop-path rate, ``draws.drop_path`` holds each
+        block's keep masks; with ``remat`` each block is recomputed in the
+        backward."""
+        c = self.cfg
+        keep = None
+        if self.training and c.dropout > 0:
+            if draws is None or draws.drop_path is None:
+                raise ValueError("drop-path in training mode needs its keep masks: see draw_train")
+            keep = draws.drop_path
+        xseq = xseq.to(c.dtype if dtype is None else dtype)
+        for i, blk in enumerate(self.blocks):
+            k = None if keep is None else keep[i]
+            if c.remat and torch.is_grad_enabled():
+                xseq = torch.utils.checkpoint.checkpoint(blk, xseq, k, c.dropout, use_reentrant=False)
+            else:
+                xseq = blk(xseq, k, c.dropout)
         return xseq.float()
 
-    def denoise(self, x_t, t, cond: Conditioning, *, t_emb=None, dtype=None) -> torch.Tensor:
+    def denoise(self, x_t, t, cond: Conditioning, *, t_emb=None, dtype=None,
+                draws: Optional[TrainDraws] = None) -> torch.Tensor:
         """x_t (B, T, 1536), t (B,) original timesteps (ignored when t_emb
         is given) -> x0 prediction (B, T, 1536); the blocks in ``dtype``
-        (default ``cfg.dtype``)."""
+        (default ``cfg.dtype``), drop-path from ``draws`` in training."""
         if t_emb is None:
             t_emb = self.embed_timesteps(t)
-        return self.output_process(self.run_blocks(self.prepare_sequence(x_t, t_emb, cond), dtype=dtype))
+        return self.output_process(self.run_blocks(self.prepare_sequence(x_t, t_emb, cond), dtype=dtype,
+                                                   draws=draws))
 
 
 def _mask(flag, like: torch.Tensor) -> torch.Tensor:
@@ -370,6 +471,20 @@ def build_mdm(cfg: MDMConfig, *, seed: int, device=None) -> MDM:
         torch.manual_seed(seed)
         mdm = MDM(cfg)
     return mdm.to(device).eval().requires_grad_(False)
+
+
+@torch.no_grad()
+def apply_word_embedding(mdm: MDM, matrix) -> MDM:
+    """Overwrite ``word_embedding`` with a pretrained (vocab, dim) matrix
+    (the fasttext table of the reference's vocab); it stays trainable.
+    Raises on a shape mismatch, so that a stale vocab fails loudly."""
+    m = torch.as_tensor(np.asarray(matrix, np.float32))
+    cur = mdm.word_embedding
+    if tuple(m.shape) != tuple(cur.shape):
+        raise ValueError(f"vocab embedding {tuple(m.shape)} != model word_embedding {tuple(cur.shape)}; "
+                         f"build the MDM with vocab_size={m.shape[0]}, word_embed_dim={m.shape[1]}")
+    cur.copy_(m)
+    return mdm
 
 
 def migrate_qkv_kernels(tree, num_heads: int):

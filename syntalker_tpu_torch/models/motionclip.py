@@ -7,8 +7,8 @@ over 22-joint rot6d frames plus a projection to ``clip_dim``; its output is
 the style input of a ``use_motionclip`` MDM. The decoder maps a CLIP-space
 latent back to ``num_frames`` rot6d frames: learned time queries attend to
 the single latent token through pre-LN blocks (flax LayerNorm eps 1e-6,
-tanh GELU). Parameter names follow the flax tree. The alignment loss and
-the train step wait for the training slice.
+tanh GELU). Parameter names follow the flax tree. Training:
+:func:`clip_alignment_loss` and :func:`make_motionclip_train_step`.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from syntalker_tpu_torch.models.tmr import LN_EPS, ActorAgnosticEncoder, Attention, TMRConfig
+from syntalker_tpu_torch.train.optim import apply_updates
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,3 +75,36 @@ class MotionCLIPDecoder(nn.Module):
             h = h + cross(ln_q(h), zt)
             h = h + fc2(F.gelu(fc1(ln_f(h)), approximate="tanh"))
         return self.out(h)
+
+
+def clip_alignment_loss(motion_emb: torch.Tensor, clip_emb: torch.Tensor) -> torch.Tensor:
+    """1 − cosine similarity against frozen CLIP features, batch mean."""
+    m = motion_emb / torch.linalg.vector_norm(motion_emb, dim=-1, keepdim=True)
+    c = clip_emb / torch.linalg.vector_norm(clip_emb, dim=-1, keepdim=True)
+    return (1.0 - (m * c).sum(-1)).mean()
+
+
+def make_motionclip_train_step(encoder: MotionCLIP, decoder: MotionCLIPDecoder, optimizer, lambdas=None):
+    """Joint encode/decode ``(params, opt_state, batch) -> (params,
+    opt_state, metrics)`` step: rot6d reconstruction + velocity + cosine
+    alignment to frozen CLIP text features, weighted by ``lambdas``.
+    ``params`` is ``tmr.train_params({"enc": encoder, "dec": decoder})``
+    (updated in place); batch: ``motion`` (B, num_frames, input_feats) and
+    ``clip_emb`` (B, clip_dim)."""
+    lambdas = lambdas or {"rc": 1.0, "vel": 1.0, "clip": 1.0}
+
+    def step(params, opt_state, batch):
+        motion = batch["motion"]
+        emb = encoder(motion)
+        rec = decoder(emb)
+        rc = ((rec - motion) ** 2).mean()
+        vel = ((torch.diff(rec, dim=1) - torch.diff(motion, dim=1)) ** 2).mean()
+        clip_l = clip_alignment_loss(emb, batch["clip_emb"])
+        loss = lambdas["rc"] * rc + lambdas["vel"] * vel + lambdas["clip"] * clip_l
+        grads = torch.autograd.grad(loss, list(params.values()))
+        updates, opt_state = optimizer.update(dict(zip(params, grads)), opt_state, params)
+        apply_updates(params, updates)
+        return params, opt_state, {"rc": rc.detach(), "vel": vel.detach(), "clip": clip_l.detach(),
+                                   "loss": loss.detach()}
+
+    return step

@@ -11,14 +11,15 @@ Counterpart of the inference half of ``syntalker_tpu/models/tmr.py``:
   token hidden states, then an :class:`ActorAgnosticEncoder`;
 - :class:`TextPipeline` — prompt strings -> align-space means through the
   hash-word embedding (:func:`~syntalker_tpu_torch.data.captions.hash_word_vector`);
-- :func:`embed_prompts`, :func:`load_tmr_artifact`, :func:`load_text_pipeline`.
+- :func:`embed_prompts`, :func:`load_tmr_artifact`, :func:`load_text_pipeline`;
+- the contrastive alignment training: :func:`info_nce` and
+  :func:`make_tmr_train_step`.
 
 Parameter names follow the flax tree (``block_i/LayerNorm_0``,
 ``MultiHeadDotProductAttention_0/{query,key,value,out}``, ``Dense_0``...),
 so :mod:`syntalker_tpu_torch.bridge` copies one onto the other. The
 DistilBERT backbone path needs a local snapshot and ``transformers``; it is
-not ported and raises. The contrastive training step waits for the
-training slice.
+not ported and raises.
 
 A default :class:`TextPipeline` head is drawn from an explicit
 ``torch.Generator`` (seed 0) with flax's initializers; JAX's default head
@@ -41,6 +42,7 @@ from torch import nn
 
 from syntalker_tpu_torch.data.captions import hash_word_vector
 from syntalker_tpu_torch.device import resolve_device
+from syntalker_tpu_torch.train.optim import apply_updates
 
 LN_EPS = 1e-6  # flax LayerNorm
 
@@ -255,3 +257,46 @@ def load_text_pipeline(path, *, backbone_path: str = "", device=None) -> TextPip
     cfg, params = load_tmr_artifact(path)
     return TextPipeline(cfg, backbone_path=backbone_path, head_params=params["text"], device=device)
 
+
+
+# ---------------------------------------------------------------------------
+# contrastive alignment training
+# ---------------------------------------------------------------------------
+
+
+def info_nce(text_emb: torch.Tensor, motion_emb: torch.Tensor, temperature: float = 0.07) -> torch.Tensor:
+    """Symmetric InfoNCE over a batch of (text, motion) pairs."""
+    t = text_emb / torch.linalg.vector_norm(text_emb, dim=-1, keepdim=True)
+    m = motion_emb / torch.linalg.vector_norm(motion_emb, dim=-1, keepdim=True)
+    logits = t @ m.T / temperature
+    loss_t = -torch.diagonal(torch.log_softmax(logits, dim=1)).mean()
+    loss_m = -torch.diagonal(torch.log_softmax(logits, dim=0)).mean()
+    return 0.5 * (loss_t + loss_m)
+
+
+def train_params(modules: Dict[str, nn.Module]) -> Dict[str, torch.Tensor]:
+    """The parameters of named modules as one trainable dict, keyed
+    ``<name>.<parameter>`` (flax's ``{name: tree}``; ``bridge.FlaxLayout``
+    of an ``nn.ModuleDict`` of the same modules maps one onto the other)."""
+    return dict(nn.ModuleDict(modules).requires_grad_(True).named_parameters())
+
+
+def make_tmr_train_step(text_head: DistilbertTextEncoder, motion_enc: ActorAgnosticEncoder, optimizer):
+    """A joint contrastive ``(params, opt_state, batch) -> (params,
+    opt_state, metrics)`` step: InfoNCE of the two means plus 1e-5 times
+    both KL terms. ``params`` is ``train_params({"text": text_head,
+    "motion": motion_enc})`` (updated in place); batch: ``text_hidden``
+    (B, L, text_feats), ``text_mask`` (B, L), ``motion`` (B, T, feats) and
+    optionally ``motion_mask``."""
+    def step(params, opt_state, batch):
+        t_mu, t_lv = text_head(batch["text_hidden"], batch["text_mask"])
+        m_mu, m_lv = motion_enc(batch["motion"], batch.get("motion_mask"))
+        nce = info_nce(t_mu, m_mu)
+        kl = 0.5 * (torch.exp(t_lv) + t_mu**2 - 1 - t_lv).mean() + 0.5 * (torch.exp(m_lv) + m_mu**2 - 1 - m_lv).mean()
+        loss = nce + 1e-5 * kl
+        grads = torch.autograd.grad(loss, list(params.values()))
+        updates, opt_state = optimizer.update(dict(zip(params, grads)), opt_state, params)
+        apply_updates(params, updates)
+        return params, opt_state, {"nce": nce.detach(), "kl": kl.detach(), "loss": loss.detach()}
+
+    return step

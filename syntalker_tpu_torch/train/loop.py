@@ -6,8 +6,10 @@ of the denoiser's latent, loaded from checkpoints (npz, see
 :mod:`syntalker_tpu_torch.train.state`: ``params`` and
 ``quantizer_state/codebook``) or, without one, initialized from a seed.
 JAX's fresh quantizer state has all-zero codebooks; the port's draws them
-from ``randn`` so that the snap has codes to choose between. The trainers
-wait for the training slice.
+from ``randn`` so that the snap has codes to choose between. The train
+steps are :mod:`~syntalker_tpu_torch.train.rvq_trainer` and
+:mod:`~syntalker_tpu_torch.train.diffusion_trainer`; the trainers' loops
+over a dataset (``DiffusionTrainer``, ``RVQTrainer``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.device import resolve_device
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
 from syntalker_tpu_torch.ops.quantize import RVQConfig
-from syntalker_tpu_torch.train.state import load_checkpoint_npz
+from syntalker_tpu_torch.train.state import TRAIN_ONLY_KEYS, load_checkpoint_npz
 
 H3D_PART_DIMS = {"upper": 156, "hands": 360, "lower": 107}  # the 623-dim representation's parts
 
@@ -46,7 +48,7 @@ def load_rvq_stack(cfg: ExperimentConfig, *, seed: int, device=None) -> Dict[str
     for i, part in enumerate(("upper", "hands", "lower")):
         rcfg = rvq_config(cfg, part)
         if i < len(cfg.rvq_ckpts) and cfg.rvq_ckpts[i]:
-            raw = load_checkpoint_npz(cfg.rvq_ckpts[i])
+            raw = load_checkpoint_npz(cfg.rvq_ckpts[i], skip=TRAIN_ONLY_KEYS)
             out[part] = bridge.rvqvae_from_flax(rcfg, raw["params"], raw["quantizer_state"]["codebook"],
                                                 device=device)
         else:

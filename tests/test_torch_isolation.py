@@ -1,7 +1,8 @@
 """The port stands alone: importing ``syntalker_tpu_torch`` (every
-submodule) and ``chip_smoke.py`` pulls in neither JAX nor the JAX package,
-entry points refuse to fall back to the CPU silently, and the ctypes
-signatures agree with the C entry points of the CUDA sources."""
+submodule, the train steps and optimizers included) and ``chip_smoke.py``
+pulls in neither JAX, flax, optax, orbax nor the JAX package, entry points
+refuse to fall back to the CPU silently, and the ctypes signatures agree
+with the C entry points of the CUDA sources."""
 
 import ast
 import ctypes
@@ -23,11 +24,13 @@ from syntalker_tpu_torch.models.tmr import TextPipeline, TMRConfig
 from syntalker_tpu_torch.ops import _build
 from syntalker_tpu_torch.serving import MotionGenerationService
 from syntalker_tpu_torch.streaming import StreamingMotionSession
+from syntalker_tpu_torch.bridge import rvq_state_from_flax
+from syntalker_tpu_torch.train import diffusion_trainer, optim, rvq_trainer
 from syntalker_tpu_torch.train.loop import load_rvq_stack
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "syntalker_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "syntalker_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "syntalker_tpu")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -37,6 +40,17 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke
 print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in {forbidden})))
 """
+
+
+def test_train_modules_are_walked():
+    """The probe below imports every submodule; the train slice's are among
+    them, and optax and orbax are on the forbidden list."""
+    names = {p.stem for p in (PKG / "train").glob("*.py")}
+    assert {"optim", "rvq_trainer", "diffusion_trainer", "state"} <= names
+    assert (PKG / "diffusion" / "extras.py").exists()
+    assert {"optax", "orbax"} <= set(FORBIDDEN)
+    assert callable(optim.make_optimizer) and callable(rvq_trainer.make_rvq_train_step)
+    assert callable(diffusion_trainer.make_diffusion_train_step)
 
 
 def test_import_pulls_in_no_jax():
@@ -76,6 +90,8 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
         load_rvq_stack(tiny, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GEN.generate_clip(tiny, "missing.wav")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rvq_state_from_flax({"codebook": [[[0.0]]]})
 
 
 def test_ctypes_signatures_match_the_sources():

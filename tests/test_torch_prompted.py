@@ -20,7 +20,7 @@ from syntalker_tpu.models.denoiser import Conditioning as JaxConditioning
 from syntalker_tpu.models.denoiser import create_mdm, mdm_variables
 from syntalker_tpu.ops.mdm_pallas import make_fused_denoise as jax_fused_denoise
 from syntalker_tpu_torch import bridge
-from syntalker_tpu_torch.models.denoiser import Conditioning, RunningBatchNorm
+from syntalker_tpu_torch.models.denoiser import BatchNorm, Conditioning
 from syntalker_tpu_torch.ops import mdm_cuda
 
 from test_torch_denoiser import JAX_CFG as BASE_CFG
@@ -99,7 +99,7 @@ def test_bridge_parameter_by_parameter(models):
             bp = p["wav_encoder"][f"block_{i}"][name]
             np.testing.assert_array_equal(norm.weight.numpy(), bp["scale"])
             np.testing.assert_array_equal(norm.bias.numpy(), bp["bias"])
-            if isinstance(norm, RunningBatchNorm):
+            if isinstance(norm, BatchNorm):
                 np.testing.assert_array_equal(norm.running_mean.numpy(), stats[f"block_{i}"][name]["mean"])
                 np.testing.assert_array_equal(norm.running_var.numpy(), stats[f"block_{i}"][name]["var"])
     assert sum(t.numel() for t in tmdm.parameters()) == sum(a.size for a in jax.tree.leaves(p))

@@ -39,8 +39,18 @@ hands and lower a lazy-init step each), the denoiser of
 profiled) and the prompted denoiser of ``configs/diffusion_h3d.yaml`` (10
 steps); each state is saved, loaded into a fresh model and stepped again,
 bit for bit the uninterrupted step; then ``generate`` runs on the
-checkpoints the phase wrote. Takes about five minutes on an H100, the
-~10 s build included.
+checkpoints the phase wrote. ``train_loop`` (last) trains through the
+port's train CLIs: a synthetic BEAT2 corpus (``make_corpus``: 4 speakers ×
+8 clips of 8-24 s) and its window caches, ``cli.train_rvq.main()`` on
+``configs/rvq_beat2.yaml`` for the three parts (1,000 iterations each from
+a device-resident dataset on the card; ``recon`` must fall) and
+``cli.train.main()`` on ``configs/diffusion_beat2.yaml`` for two epochs on
+those RVQ-VAEs; ``generate`` on the checkpoints (exact counts, every K3
+call against the plain version); then, on the trained decoders, the
+decoder's reach, the K1 stream against the whole clip decoded at once
+(reported beside the stream's margins) and two f32 decodes of the same
+codes, on the card and on the CPU. Takes about seven minutes on an H100,
+the ~10 s build included (``train_loop`` about three).
 Prints one JSON line per phase, then the ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
@@ -59,6 +69,7 @@ import time
 import traceback
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -67,10 +78,15 @@ from scipy.io import wavfile
 from syntalker_tpu_torch import generation as G
 from syntalker_tpu_torch import native
 from syntalker_tpu_torch.cli import generate as GEN
+from syntalker_tpu_torch.cli import train as TRAIN
+from syntalker_tpu_torch.cli import train_rvq as TRAIN_RVQ
 from syntalker_tpu_torch.config import load_config
 from syntalker_tpu_torch.data import audio as A
 from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.data.audio import onset_amplitude_features
+from syntalker_tpu_torch.data.beat_builder import build_beat_cache
+from syntalker_tpu_torch.data.cache import BeatCache, ClipConfig
+from syntalker_tpu_torch.data.features import pose_to_part_rot6d
 from syntalker_tpu_torch.data.stats import identity_pose_stats
 from syntalker_tpu_torch.device import full_f32
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
@@ -86,7 +102,9 @@ from syntalker_tpu_torch.train.diffusion_trainer import (DiffusionTrainConfig, d
                                                          make_latent_encoder)
 from syntalker_tpu_torch.train.loop import rvq_config
 from syntalker_tpu_torch.train.rvq_trainer import RVQLossConfig, make_rvq_train_step, rvq_loss
-from syntalker_tpu_torch.train.state import TrainState, create_train_state, load_checkpoint, save_checkpoint
+from syntalker_tpu_torch.data.synthetic import make_corpus
+from syntalker_tpu_torch.train.state import (TrainState, create_train_state, latest_checkpoint, load_checkpoint,
+                                             save_checkpoint)
 
 H3D_CONFIG = "configs/diffusion_h3d.yaml"  # read through the port's load_config
 BEAT2_CONFIG = "configs/diffusion_beat2.yaml"
@@ -891,25 +909,34 @@ def chunked_decode(lat, rvq, sess):
     return np.concatenate(aa), trans
 
 
-def phase_stream(mdm, diffusion, rvq) -> dict:
-    """The streaming session at full width: a 16 s clip's features pushed in
-    ragged chunks through K1 (one call a window) and K3 (three calls a
-    window's decode and three at the flush). Each of the stream's K3 calls
-    is held against the plain version on its own rows (K1 at B=1 is held in
-    the parity phase). The session's bookkeeping is held against the offline
-    K1 sampler on the same audio and noise with each window's decode buffer
-    decoded alone (``chunked_decode``). Beside it, how far the stream lies
-    from the whole clip decoded at once: reported, not held, since the
-    full-width decoder reaches past the 16/8-latent margins. Exact counts
-    from the wrappers and, for K3's kernels and the device->host copies,
-    from a torch.profiler session of a second stream; the cold first window
-    (K1's graph captured at it), the warm windows (captured before, by
-    ``warm_up``) and a steady window's device-busy share."""
-    cfg = mdm.cfg
+def windowed_latents(mdm, diffusion, plan, aw, ww, seed, noise):
+    """The offline K1 sampler one window at a time, as the stream runs it:
+    the same shapes, so the same latents. The sampler over the whole clip
+    encodes all windows in one batch, whose f32 sums reach K1's bf16 inputs
+    rounded differently, and the discontinuous snap can then take other
+    codes."""
+    sampler = G.make_fused_loop_sampler(mdm, diffusion, G.plan_windows(plan.pose_length))
+    wins = []
+    for w in range(plan.num_windows):
+        wins.append(sampler(aw[w : w + 1], ww[w : w + 1], seed, noise[w : w + 1]))
+        seed = wins[-1][:, -plan.pre_frames :]
+    return torch.cat([wins[0]] + [x[:, plan.pre_frames :] for x in wins[1:]], dim=1)
+
+
+def stream_against_offline(mdm, diffusion, rvq) -> SimpleNamespace:
+    """A 16 s clip's features pushed in ragged chunks through a warmed
+    session: K1 one call a window, K3 three calls a window's decode and
+    three at the flush, every K3 call held against the plain version on its
+    own rows, exact counts. Then the offline K1 sampler on the same audio
+    and noise a window at a time (``windowed_latents``): the stream's
+    distance to each window's decode buffer decoded alone
+    (``chunked_decode``; ``aa_err``, ``tr_err``, for the caller to hold at
+    STREAM_ATOL and TRANS_REL) and to the whole clip decoded at once
+    (``whole``, reported beside DECODE_MARGIN and TRANS_REL)."""
     plan = G.plan_windows(int(STREAM_SECONDS * 30))
-    g = torch.Generator(device=DEV).manual_seed(13)
     feats, words = stream_clip(13)
-    noise = G.draw_noise(plan, 1, g, DEV)
+    words = words % mdm.cfg.vocab_size  # a denoiser trained on a corpus has that corpus's vocabulary
+    noise = G.draw_noise(plan, 1, torch.Generator(device=DEV).manual_seed(13), DEV)
 
     def make():
         return stream_session(mdm, diffusion, rvq, noise=noise)
@@ -920,11 +947,9 @@ def phase_stream(mdm, diffusion, rvq) -> dict:
         segs = push_ragged(sess, feats, words)
     torch.cuda.synchronize()
     counts = {**mdm_cuda.launches, **quantize_cuda.launches}
-    k3 = k3_calls_check(k3_calls)
     windows = sess.stream_stats.windows_run
-    per_window = mdm_cuda.window_launches(cfg.num_layers, diffusion.num_steps)
-    rvq_kernels = quantize_cuda.rvq_kernel_launches(6)
-    want = {"ddim_window": windows * per_window, "block_stack": 0, "rvq_encode": 3 * (windows + 1)}
+    want = {"ddim_window": windows * mdm_cuda.window_launches(mdm.cfg.num_layers, diffusion.num_steps),
+            "block_stack": 0, "rvq_encode": 3 * (windows + 1)}
     assert windows == plan.num_windows and counts == want, (windows, counts, want)
 
     aa = np.concatenate([s["axis_angle"] for s in segs])
@@ -932,34 +957,47 @@ def phase_stream(mdm, diffusion, rvq) -> dict:
     aw = torch.as_tensor(G.window_audio(feats[None], plan), device=DEV)
     ww = torch.as_tensor(G.window_words(words[None, : plan.n_frames], plan), device=DEV)
     seed = torch.zeros(1, plan.pre_frames, J.LATENT_DIM, device=DEV)
-    batched = G.make_fused_loop_sampler(mdm, diffusion, plan)(aw, ww, seed, noise)
-    # the offline sampler one window at a time, as the stream runs it: the same shapes, so the same latents; the
-    # sampler over the whole clip encodes all windows in one batch, whose f32 sums reach K1's bf16 inputs
-    # rounded differently, and the discontinuous snap can then take other codes
-    sampler = G.make_fused_loop_sampler(mdm, diffusion, G.plan_windows(plan.pose_length))
-    wins = []
-    for w in range(plan.num_windows):
-        wins.append(sampler(aw[w : w + 1], ww[w : w + 1], seed, noise[w : w + 1]))
-        seed = wins[-1][:, -plan.pre_frames :]
-    lat = torch.cat([wins[0]] + [x[:, plan.pre_frames :] for x in wins[1:]], dim=1)
+    lat = windowed_latents(mdm, diffusion, plan, aw, ww, seed, noise)
     ref_aa, ref_tr = chunked_decode(lat, rvq, sess)
     assert aa.shape == ref_aa.shape == (plan.out_latent_frames * plan.squeeze, 165), (aa.shape, ref_aa.shape)
     assert np.isfinite(aa).all() and np.isfinite(tr).all()
     starts = [s["frame_start"] for s in segs]
     assert starts == list(np.cumsum([0] + [len(s["axis_angle"]) for s in segs[:-1]]))
-    aa_err = float(np.abs(aa - ref_aa).max())
-    tr_err = float(np.abs(tr - ref_tr).max() / max(1.0, np.abs(ref_tr).max()))
     # the whole clip decoded at once: equal to the stream as far as the decoder's reach ends inside the margins
     off = G.decode_latents(lat, rvq_modules=rvq, stats=identity_pose_stats())
     off_r6, off_tr = off["rot6d"][0].cpu().numpy(), off["trans"][0].cpu().numpy()
     r6_frame_err = np.abs(np.concatenate([s["rot6d"] for s in segs]) - off_r6).max(-1)
     whole = {"axis_angle_max_abs_err": float(np.abs(aa - off["axis_angle"][0].cpu().numpy()).max()),
              "rot6d_max_abs_err": float(r6_frame_err.max()),
-             "frames_rot6d_err_over_margin": np.flatnonzero(r6_frame_err > DECODE_MARGIN).tolist(),
+             "frames_rot6d_err_over_margin": int((r6_frame_err > DECODE_MARGIN).sum()), "frames": len(r6_frame_err),
              "trans_rel_err": float(np.abs(tr - off_tr).max() / max(1.0, np.abs(off_tr).max())),
              "margins": {"axis_angle": DECODE_MARGIN, "trans_rel": TRANS_REL}}
-    seed_err = rel_err(sess._state["seed"], lat[:, -plan.pre_frames :])
-    batched_err = rel_err(lat, batched)
+    whole["axis_angle_met"] = whole["axis_angle_max_abs_err"] <= DECODE_MARGIN
+    whole["trans_met"] = whole["trans_rel_err"] <= TRANS_REL
+    return SimpleNamespace(plan=plan, feats=feats, words=words, noise=noise, make=make, sess=sess, warm_s=warm_s,
+                           windows=windows, launches=counts, k3=k3_calls_check(k3_calls), frames=len(aa), aw=aw,
+                           ww=ww, seed=seed, lat=lat, aa_err=float(np.abs(aa - ref_aa).max()),
+                           tr_err=float(np.abs(tr - ref_tr).max() / max(1.0, np.abs(ref_tr).max())), whole=whole)
+
+
+def phase_stream(mdm, diffusion, rvq) -> dict:
+    """The streaming session at full width (``stream_against_offline``; K1
+    at B=1 is held in the parity phase): the session's bookkeeping held
+    against the offline K1 sampler with each window's decode buffer decoded
+    alone. Beside it, how far the stream lies from the whole clip decoded
+    at once: reported, not held, since the full-width decoder reaches past
+    the 16/8-latent margins. Exact counts from the wrappers and, for K3's
+    kernels and the device->host copies, from a torch.profiler session of a
+    second stream; the cold first window (K1's graph captured at it), the
+    warm windows (captured before, by ``warm_up``) and a steady window's
+    device-busy share."""
+    run = stream_against_offline(mdm, diffusion, rvq)
+    plan, feats, words, make, windows = run.plan, run.feats, run.words, run.make, run.windows
+    rvq_kernels = quantize_cuda.rvq_kernel_launches(6)
+    batched = G.make_fused_loop_sampler(mdm, diffusion, plan)(run.aw, run.ww, run.seed, run.noise)
+    aa_err, tr_err = run.aa_err, run.tr_err
+    seed_err = rel_err(run.sess._state["seed"], run.lat[:, -plan.pre_frames :])
+    batched_err = rel_err(run.lat, batched)
 
     # the same stream again under the profiler: K3's kernels and the copies to the host
     from torch.profiler import ProfilerActivity, profile
@@ -981,14 +1019,14 @@ def phase_stream(mdm, diffusion, rvq) -> dict:
     warm = timed_windows(warm_session(make)[0], feats, words, windows)
     steady = profile_steady_window(warm_session(make)[0], feats, words, windows, 3 * rvq_kernels)
     assert steady["device_to_host_copies"] == 1, steady
-    out = {"phase": "stream", "windows": windows, "frames": len(aa), "chunks": list(STREAM_CHUNKS),
+    out = {"phase": "stream", "windows": windows, "frames": run.frames, "chunks": list(STREAM_CHUNKS),
            "axis_angle_max_abs_err": aa_err, "axis_angle_tol": STREAM_ATOL, "trans_rel_err": tr_err,
            "trans_tol": TRANS_REL, "seed_rel_err_vs_offline": seed_err,
            "reference": "make_fused_loop_sampler a window at a time, each window's decode buffer decoded alone",
-           "whole_clip_decode": whole,
+           "whole_clip_decode": run.whole,
            "latent_rel_err_batched_vs_windowed_offline": batched_err, "batched_tol": SAMPLER_REL,
-           "launches": counts, "rvq_kernels": seen, "profile_attempts": attempt,
-           "device_to_host_copies": d2h, "warm_up_s": warm_s, "k3_vs_plain": k3,
+           "launches": run.launches, "rvq_kernels": seen, "profile_attempts": attempt,
+           "device_to_host_copies": d2h, "warm_up_s": run.warm_s, "k3_vs_plain": run.k3,
            "cold_window_ms": cold[:-1], "cold_flush_ms": cold[-1], "cold_first_window_ms": cold[0],
            "warm_window_ms": warm[:-1], "warm_flush_ms": warm[-1],
            "warm_steady_window_ms": float(np.mean(warm[1:-1])), "steady_window_profile": steady}
@@ -1646,6 +1684,226 @@ def phase_train(generate: bool = True, rvq_overrides=(), mdm_overrides=(), batch
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_loop phase: the synthetic corpus, the window caches, the trainers' loops through the train CLIs, generate
+# and the stream on what they trained
+# ---------------------------------------------------------------------------
+
+LOOP_SPEAKERS, LOOP_CLIPS, LOOP_SECONDS = (2, 4, 6, 8), 8, (8.0, 24.0)  # make_corpus's defaults but 8 clips a speaker
+LOOP_RVQ_ITERS, LOOP_LOG_PERIOD = 1000, 100  # a part's iterations: ~30 ms each at batch 256 (the train phase)
+LOOP_MDM_EPOCHS = 2
+REACH = (8, 16, 23)  # latent frames, as tests/test_torch_decode_reach.py reads the decoder's reach
+FRAMEWORK_ABS = 1e-4  # tests/test_torch_streaming.py's POSE_ABS: two f32 decodes of the same latents
+
+
+def cache_bytes(root: Path) -> int:
+    return sum(f.stat().st_size for f in root.rglob("*.npz"))
+
+
+def build_loop_caches(d: Path) -> dict:
+    """The corpus and the train caches the CLIs will find (a cache hit):
+    64-frame windows for the RVQ-VAEs, 128 frames stride 20 for the
+    denoiser."""
+    t0 = time.perf_counter()
+    ids = make_corpus(d / "corpus", speakers=LOOP_SPEAKERS, clips_per_speaker=LOOP_CLIPS, seconds_range=LOOP_SECONDS,
+                      seed=0)
+    corpus_s = time.perf_counter() - t0
+    out = {"clips": len(ids), "speakers": list(LOOP_SPEAKERS), "seconds_range": list(LOOP_SECONDS),
+           "corpus_s": corpus_s}
+    for name, cache_dir, length in (("rvq", d / "cache_rvq", load_config(RVQ_CONFIG).rvq_train.window),
+                                    ("mdm", d / "cache", load_config(BEAT2_CONFIG).data.pose_length)):
+        t0 = time.perf_counter()
+        cache, vocab = build_beat_cache(d / "corpus", cache_dir, speakers=LOOP_SPEAKERS,
+                                        cfg=ClipConfig(pose_length=length, stride=20))
+        out[name] = {"window": length, "stride": 20, "train_clips": len(cache.clips), "windows": len(cache),
+                     "cache_mb": cache_bytes(cache_dir) / 2**20, "build_s": time.perf_counter() - t0,
+                     "vocab_words": vocab.n_words}
+    return out
+
+
+def no_stats(d: Path) -> str:
+    """Points ``data.mean_std_dir`` at a directory that does not exist, so
+    that the trainers and ``generate`` take identity pose stats, as the
+    decodes of this phase do."""
+    return f"data.mean_std_dir={d / 'no_mean_std'}"
+
+
+def loop_overrides(d: Path) -> list:
+    return [no_stats(d), f"data.data_path={d / 'corpus'}", f"data.cache_path={d / 'cache'}",
+            f"train.ckpt_dir={d / 'ckpt'}",
+            f"data.training_speakers=[{','.join(map(str, LOOP_SPEAKERS))}]", "train.device_data=true",
+            f"data.vocab_path={d / 'cache' / 'vocab.json'}"]
+
+
+def trainer_timing(trainer, steps: int = 10) -> dict:
+    """The loop's own step time (host clock between its logs, synchronised
+    by the logged loss) beside CUDA events around ``steps`` more steps on
+    batches the device-resident dataset gathers, and one profiled step."""
+    ds = trainer.device_dataset()
+    batches = []
+    for epoch in range(10_000, 10_000 + steps):
+        batches += [ds.batch(idx) for idx in ds.epoch_indices(epoch)]
+        if len(batches) >= steps:
+            break
+    trainer.state, _, ms = timed_steps(trainer.step, trainer.state, batches[:steps])
+    loop_ms = [h["ms_per_step"] for h in trainer.history[1:]]
+    return {"loop_ms_per_step": float(np.mean(loop_ms)) if loop_ms else None, "cuda_event_warm_step_ms": warm_ms(ms),
+            "profile": busy_share(trainer.step, trainer.state, batches[0])}
+
+
+def loop_rvq(part: str, d: Path, iters: int, overrides: list) -> tuple:
+    """``cli.train_rvq.main()`` for one part; (phase dict, checkpoint)."""
+    argv = ["-c", RVQ_CONFIG, "--run-dir", str(d / "run"), f"rvq_train.body_part={part}",
+            f"rvq_train.total_iters={iters}", f"rvq_train.save_every={iters}", f"train.log_period={LOOP_LOG_PERIOD}",
+            *loop_overrides(d), *overrides]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = TRAIN_RVQ.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ds = trainer.device_dataset()
+    assert all(v.device.type == DEV.type for v in ds.arrays.values()), [str(v.device) for v in ds.arrays.values()]
+    path = d / "ckpt" / f"rvq_{part}" / f"step_{iters}.npz"
+    assert path.exists(), path
+    first, last = trainer.history[0], trainer.history[-1]
+    out = {"part": part, "iters": iters, "batch": trainer.loader.batch_size, "windows": ds.n, "dataset_gb": ds.nbytes / 1e9,
+           "placement": ds.placement, "dataset_device": str(next(iter(ds.arrays.values())).device),
+           "wall_s_to_trained": wall_s, "first_log": first, "last_log": last,
+           "recon_fell": last["recon"] < first["recon"], **trainer_timing(trainer)}
+    assert out["recon_fell"] and np.isfinite(last["loss"]), (first, last)
+    return out, path
+
+
+def loop_mdm(d: Path, rvq_paths: list, overrides: list) -> tuple:
+    """``cli.train.main()`` on the beat2 denoiser; (phase dict, checkpoint)."""
+    argv = ["-c", BEAT2_CONFIG, "--run-dir", str(d / "run"), f"rvq_ckpts=[{','.join(map(str, rvq_paths))}]",
+            f"train.epochs={LOOP_MDM_EPOCHS}", "train.log_period=1", *loop_overrides(d), *overrides]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = TRAIN.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ds = trainer.device_dataset()
+    assert all(v.device.type == DEV.type for v in ds.arrays.values()), [str(v.device) for v in ds.arrays.values()]
+    path = latest_checkpoint(d / "ckpt")
+    steps = LOOP_MDM_EPOCHS * len(ds)
+    assert path is not None and path.name == f"step_{steps}.npz", (path, steps)
+    losses = [h["loss"] for h in trainer.history]
+    assert np.isfinite(losses).all()
+    out = {"epochs": LOOP_MDM_EPOCHS, "steps": steps, "batch": trainer.loader.batch_size, "windows": ds.n,
+           "dataset_gb": ds.nbytes / 1e9, "placement": ds.placement, "wall_s": wall_s, "loss_first": losses[0],
+           "loss_last": losses[-1], "dtype": str(trainer.mdm.cfg.dtype), "audio_norm": trainer.mdm.cfg.audio_norm,
+           **trainer_timing(trainer)}
+    return out, path
+
+
+def clip_latents(rvq, d: Path, n_lat: int = 116) -> tuple:
+    """The trained encoders' latents (1, n_lat, 1536) ÷ latent_scale of the
+    two longest train clips' first 4·n_lat frames."""
+    cache = BeatCache.open(d / "cache_rvq" / "train")
+    clips = sorted(cache.clips, key=lambda c: -cache.clips[c]["poses"].shape[0])[:2]
+    encode = make_latent_encoder(rvq, identity_pose_stats(), latent_scale=load_config(BEAT2_CONFIG).latent_scale)
+    out = []
+    for clip in clips:
+        c = cache.clips[clip]
+        assert c["poses"].shape[0] >= 4 * n_lat, (clip, c["poses"].shape)
+        pose = torch.as_tensor(c["poses"][None, : 4 * n_lat], device=DEV)
+        parts = pose_to_part_rot6d(pose)
+        trans_v = torch.as_tensor(c["trans_v"][None, : 4 * n_lat], device=DEV)
+        out.append(encode(parts["upper"], parts["hands"], parts["lower"], trans_v))
+    return out[0], out[1]
+
+
+def decoder_reach(rvq, lat, other) -> dict:
+    """tests/test_torch_decode_reach.py's reading on these decoders: the
+    largest rot6d change of the centre latent frame's 4 output frames when
+    every latent frame farther than d from it is replaced (here by another
+    clip's latents)."""
+    def rot6d(x):
+        return G.decode_latents(x, rvq_modules=rvq, stats=identity_pose_stats())["rot6d"][0]
+
+    centre = lat.shape[1] // 2
+    base = rot6d(lat)[centre * 4 : (centre + 1) * 4]
+    far = (torch.arange(lat.shape[1], device=DEV) - centre).abs()
+    return {d: float((rot6d(torch.where((far > d)[None, :, None], other, lat))[centre * 4 : (centre + 1) * 4]
+                      - base).abs().max()) for d in REACH}
+
+
+def framework_gap(rvq, lat) -> dict:
+    """Fault 2's reading on these decoders: the same snapped codes decoded in
+    f32 on the card and on the CPU (two f32 convolution orders), the
+    decoders' part features and then the rotations."""
+    outs = []
+    for dev in (DEV, torch.device("cpu")):
+        parts = {}
+        for name, (lo, hi) in J.LATENT_SLICES.items():
+            module, state = rvq[name]
+            z = (lat[..., lo:hi] * load_config(BEAT2_CONFIG).latent_scale).reshape(-1, hi - lo).cpu()
+            _, idx = quantize_cuda.rvq_encode_plain(z, state.codebook.cpu())
+            m = copy.deepcopy(module).to(dev)
+            st = dataclasses.replace(state, codebook=state.codebook.to(dev))
+            parts[name] = m.decode_indices(idx.reshape(1, lat.shape[1], -1).to(dev), st)
+        outs.append((parts, G.decode_parts(parts, stats=identity_pose_stats())))
+    (pc, dc), (pp, dp) = outs
+    parts_gap = max(float((pc[n].cpu() - pp[n]).abs().max()) for n in pc)
+    gap = {k: float((dc[k].cpu() - dp[k]).abs().max()) for k in ("rot6d", "axis_angle", "trans")}
+    return {"parts_max_abs_gap": parts_gap, **{f"{k}_max_abs_gap": v for k, v in gap.items()},
+            "rot6d_amplification": gap["rot6d"] / max(parts_gap, 1e-30), "bound": FRAMEWORK_ABS,
+            "rotations_met": max(gap["rot6d"], gap["axis_angle"]) <= FRAMEWORK_ABS,
+            "trans_met": gap["trans"] <= FRAMEWORK_ABS}
+
+
+def trained_stream(mdm, diffusion, rvq) -> dict:
+    """Fault 1's reading on the trained models (``stream_against_offline``):
+    the stream held to each window's decode buffer decoded alone at
+    STREAM_ATOL as in the stream phase, and its distance to the whole clip
+    decoded at once reported beside the stream's margins."""
+    run = stream_against_offline(mdm, diffusion, rvq)
+    assert run.aa_err <= STREAM_ATOL and run.tr_err <= TRANS_REL, (run.aa_err, run.tr_err)
+    return {"windows": run.windows, "launches": run.launches,
+            "rvq_kernels": 3 * (run.windows + 1) * quantize_cuda.rvq_kernel_launches(6), "k3_vs_plain": run.k3,
+            "axis_angle_err_vs_chunked": run.aa_err, "trans_rel_err_vs_chunked": run.tr_err,
+            "chunked_tol": STREAM_ATOL, "whole_clip_decode": run.whole}
+
+
+def phase_train_loop(rvq_iters: int = LOOP_RVQ_ITERS, rvq_overrides=(), mdm_overrides=()) -> dict:
+    """Training part B on the card: a synthetic BEAT2 corpus and its window
+    caches; ``cli.train_rvq.main()`` on ``configs/rvq_beat2.yaml`` for the
+    three parts (``rvq_iters`` each, from a device-resident dataset) and
+    ``cli.train.main()`` on ``configs/diffusion_beat2.yaml`` for two epochs
+    on the RVQ-VAEs just written; ``generate`` on those checkpoints (exact
+    K2 and K3 counts, every K3 call against the plain version, the plain
+    f32 sampler within SAMPLER_REL); then the re-read of the stream's
+    faults on the trained decoders: the decoder's reach, the K1 stream
+    against the whole-clip decode, and two f32 decodes of the same codes
+    (card and CPU)."""
+    out = {"phase": "train_loop", "card": card_name_and_power_limit()}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        out["data"] = build_loop_caches(d)
+        emit({"phase": "train_loop", "card": out["card"], "data": out["data"]})
+        paths = []
+        for part in ("upper", "hands", "lower"):
+            out[f"rvq_{part}"], path = loop_rvq(part, d, rvq_iters, list(rvq_overrides))
+            emit({"phase": "train_loop", "card": out["card"], "model": f"rvq_{part}", **out[f"rvq_{part}"]})
+            paths.append(path)
+        out["diffusion"], mdm_path = loop_mdm(d, paths, list(mdm_overrides))
+        emit({"phase": "train_loop", "card": out["card"], "model": "beat2", **out["diffusion"]})
+        ov = ["diffusion.timestep_respacing=ddim50", f"rvq_ckpts=[{','.join(map(str, paths))}]", f"test_ckpt={mdm_path}",
+              no_stats(d), *mdm_overrides]
+        out["generate"] = phase_generate("trained_loop", BEAT2_CONFIG, ov, {})
+        mdm, rvq, diffusion, _ = GEN.load_models(load_config(BEAT2_CONFIG, ov), DEV)
+        lat, other = clip_latents(rvq, d)
+        out["faults"] = {"reach_rot6d_change_beyond": decoder_reach(rvq, lat, other),
+                         "random_latents_reach": decoder_reach(rvq, *(
+                             torch.randn(2, 1, lat.shape[1], lat.shape[2], device=DEV,
+                                         generator=torch.Generator(DEV).manual_seed(0)) / 5.0)),
+                         "framework_gap": framework_gap(rvq, lat),
+                         "stream": trained_stream(mdm, diffusion, rvq)}
+        emit({"phase": "train_loop", "card": out["card"], "faults": out["faults"]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1681,6 +1939,10 @@ def main() -> int:
     gen = {"h3d": phase_generate("h3d", H3D_CONFIG, [], GENERATE_PROMPTS),
            "beat2": phase_generate("beat2", BEAT2_CONFIG, ["diffusion.timestep_respacing=ddim50", "rvq_ckpts=[]"], {})}
     gen["trained"] = phase_train()["generate"]
+    loop = phase_train_loop()
+    gen["trained_loop"] = loop["generate"]
+    trained_stream_launches = loop["faults"]["stream"]["launches"]
+    trained_stream_launches["rvq_kernels"] = loop["faults"]["stream"]["rvq_kernels"]
 
     src = "syntalker_tpu_torch/csrc/"
     k3_row = k3[SERVE_BATCH * 116]
@@ -1704,7 +1966,9 @@ def main() -> int:
          "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "prompted_flush_launches": prompted,
          "stream_launches": streamed, "encode_path_launches": encoded,
          "generate_launches": {k: (v["launches"][name] if name != "rvq_encode" else v["rvq_kernels"])
-                               for k, v in gen.items()}, "error_vs_tol": err}
+                               for k, v in gen.items()},
+         "trained_stream_launches": trained_stream_launches[name if name != "rvq_encode" else "rvq_kernels"],
+         "error_vs_tol": err}
         for name, source, replaces, r, launches, prompted, streamed, encoded, err in rows
     ]})
     print(card_name_and_power_limit(), flush=True)

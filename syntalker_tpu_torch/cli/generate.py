@@ -39,13 +39,10 @@ from syntalker_tpu_torch.device import resolve_device
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.models.denoiser import build_mdm, migrate_qkv_kernels
 from syntalker_tpu_torch.models.tmr import TextPipeline, embed_prompts
-from syntalker_tpu_torch.train.loop import load_rvq_stack
+from syntalker_tpu_torch.train.loop import RVQ_SEED_OFFSET, load_rvq_stack
 from syntalker_tpu_torch.train.state import load_model_variables
 
 log = logging.getLogger("syntalker")
-
-RVQ_SEED_OFFSET = 99  # the RVQ stack's seeds, after the denoiser's
-
 
 def load_models(cfg: ExperimentConfig, device):
     """(MDM, RVQ stack, schedule, pose stats) of a config."""
@@ -56,9 +53,7 @@ def load_models(cfg: ExperimentConfig, device):
     else:
         mdm = build_mdm(cfg.mdm, seed=cfg.train.seed, device=device)
     rvq = load_rvq_stack(cfg, seed=cfg.train.seed + RVQ_SEED_OFFSET, device=device)
-    if cfg.diffusion.schedule != "cosine":
-        raise ValueError(f"schedule {cfg.diffusion.schedule!r} is not ported; the port has the cosine schedule")
-    diffusion = make_diffusion(steps=cfg.diffusion.steps,
+    diffusion = make_diffusion(schedule=cfg.diffusion.schedule, steps=cfg.diffusion.steps,
                                timestep_respacing=cfg.diffusion.timestep_respacing or "ddim50")
     mean_std = Path(cfg.data.mean_std_dir)
     stats = load_pose_stats(mean_std) if mean_std.exists() else identity_pose_stats()

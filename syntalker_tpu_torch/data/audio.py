@@ -10,8 +10,10 @@ the STFT and the mel projection stay numpy. ``amplitude_envelope_plain``
 and ``peak_pick_plain`` are the numpy versions the tests hold the C++
 against. For the ``generate`` CLI: ``load_wav_mono`` (PCM or float WAV,
 stereo mixed to mono, polyphase resampling) and ``align_words_by_energy``
-(transcript words over the voiced audio). The mel features and wav2vec2
-features wait for the training slice.
+(transcript words over the voiced audio). For the training data path's
+other audio representations: ``melspectrogram_features`` (mel power per pose
+frame) and ``wav2vec2_features`` (a local Wav2Vec2 snapshot through the
+``transformers`` package, which raises without either).
 """
 
 from __future__ import annotations
@@ -168,6 +170,41 @@ def onset_amplitude_features(y: np.ndarray, sr: int = 16000) -> np.ndarray:
     samples = onset_detect_frames(y, sr) * 512
     onset[samples[samples < len(y)]] = 1.0
     return np.stack([amp, onset], axis=1)
+
+
+def melspectrogram_features(y: np.ndarray, sr: int = 16000, fps: int = 30, n_mels: int = 128) -> np.ndarray:
+    """Per-pose-frame mel power (frames, n_mels): the reference's
+    ``audio_rep: mfcc`` alternative, hop sr / fps."""
+    hop = sr // fps
+    S = stft_power(y, 2048, hop) @ mel_filterbank(sr, 2048, n_mels).T
+    return S.astype(np.float32)
+
+
+def wav2vec2_features(y: np.ndarray, sr: int = 16000, fps: int = 30, model_path: str = "") -> np.ndarray:
+    """Wav2Vec2 hidden states (frames, 768) linearly interpolated to the pose
+    frame rate. Needs a local pretrained snapshot (``model_path``, e.g. a
+    downloaded facebook/wav2vec2-base-960h) and the ``transformers``
+    package; raises a ValueError without the first and an ImportError
+    without the second."""
+    if not model_path:
+        raise ValueError("wav2vec2 features need a local pretrained snapshot "
+                         "(pass model_path to a downloaded facebook/wav2vec2-base-960h)")
+    try:
+        from transformers import Wav2Vec2Model
+    except ImportError as e:
+        raise ImportError("wav2vec2 features need the 'transformers' package, which is not installed") from e
+    import torch
+
+    model = Wav2Vec2Model.from_pretrained(model_path, local_files_only=True).eval()
+    with torch.no_grad():
+        hidden = model(torch.from_numpy(y[None]).float()).last_hidden_state[0]
+    n_frames = int(len(y) / sr * fps)
+    src = np.linspace(0, hidden.shape[0] - 1, n_frames)
+    lo = np.floor(src).astype(int)
+    hi = np.minimum(lo + 1, hidden.shape[0] - 1)
+    frac = (src - lo)[:, None]
+    h = hidden.numpy()
+    return (h[lo] * (1 - frac) + h[hi] * frac).astype(np.float32)
 
 
 def align_words_by_energy(words: "list[str]", y: np.ndarray, sr: int = 16000, *, frame_length: int = 1024,

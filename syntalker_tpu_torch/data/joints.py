@@ -4,7 +4,9 @@ A copy of the tables in ``syntalker_tpu/data/joints.py`` (the port keeps its
 own so that it never imports the JAX package). 55 pose joints, 165
 axis-angle dof, 330 rot6d dims; three generated body parts (upper, hands,
 lower + root translation velocity) whose 512-d latents concatenate to the
-1536-d diffusion latent.
+1536-d diffusion latent; the per-part gather indices in rot6d and in
+axis-angle space, their boolean masks, and ``scatter_part``, the inverse
+of a part's gather.
 """
 
 from __future__ import annotations
@@ -20,9 +22,13 @@ HANDS_JOINTS = tuple(range(25, 55))
 LOWER_JOINTS = (0, 1, 2, 4, 5, 7, 8, 10, 11)
 FACE_JOINTS = (22,)  # jaw; eyes (23, 24) are never modeled
 
-UPPER_DIM = len(UPPER_JOINTS) * 6  # 78
-HANDS_DIM = len(HANDS_JOINTS) * 6  # 180
-LOWER_DIM = len(LOWER_JOINTS) * 6  # 54
+UPPER_JOINT_COUNT = len(UPPER_JOINTS)  # 13
+HANDS_JOINT_COUNT = len(HANDS_JOINTS)  # 30
+LOWER_JOINT_COUNT = len(LOWER_JOINTS)  # 9
+
+UPPER_DIM = UPPER_JOINT_COUNT * 6  # 78
+HANDS_DIM = HANDS_JOINT_COUNT * 6  # 180
+LOWER_DIM = LOWER_JOINT_COUNT * 6  # 54
 LOWER_TRANS_DIM = LOWER_DIM + 3  # 57 (with translation velocity)
 
 LATENT_DIM_PER_PART = 512
@@ -48,3 +54,38 @@ def _feature_indices(joint_ids, per_joint: int) -> np.ndarray:
 UPPER_6D_IDX = _feature_indices(UPPER_JOINTS, 6)
 HANDS_6D_IDX = _feature_indices(HANDS_JOINTS, 6)
 LOWER_6D_IDX = _feature_indices(LOWER_JOINTS, 6)
+
+# axis-angle-space (165-dim) gather indices per part
+UPPER_AA_IDX = _feature_indices(UPPER_JOINTS, 3)
+HANDS_AA_IDX = _feature_indices(HANDS_JOINTS, 3)
+LOWER_AA_IDX = _feature_indices(LOWER_JOINTS, 3)
+FACE_AA_IDX = _feature_indices(FACE_JOINTS, 3)  # jaw = dims 66:69
+
+
+def boolean_mask(indices: np.ndarray, dim: int) -> np.ndarray:
+    m = np.zeros(dim, dtype=bool)
+    m[indices] = True
+    return m
+
+
+# boolean masks of the reference's joint_mask_* arrays
+JOINT_MASK_UPPER = boolean_mask(UPPER_AA_IDX, AXIS_ANGLE_DIM)
+JOINT_MASK_HANDS = boolean_mask(HANDS_AA_IDX, AXIS_ANGLE_DIM)
+JOINT_MASK_LOWER = boolean_mask(LOWER_AA_IDX, AXIS_ANGLE_DIM)
+JOINT_MASK_FACE = boolean_mask(FACE_AA_IDX, AXIS_ANGLE_DIM)
+
+
+def scatter_part(part_features, indices: np.ndarray, dim: int):
+    """A part's features (..., len(indices)) scattered into zeros of
+    (..., dim): the inverse of the part's gather. Takes a numpy array or a
+    torch tensor and returns the same kind."""
+    out_shape = part_features.shape[:-1] + (dim,)
+    if isinstance(part_features, np.ndarray):
+        out = np.zeros(out_shape, dtype=part_features.dtype)
+        out[..., indices] = part_features
+        return out
+    import torch
+
+    out = part_features.new_zeros(out_shape)
+    out[..., torch.as_tensor(indices, device=part_features.device)] = part_features
+    return out

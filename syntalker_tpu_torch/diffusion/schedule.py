@@ -1,19 +1,25 @@
 """Diffusion noise schedule and timestep respacing as numpy arrays.
 
-Counterpart of ``make_diffusion`` / ``DiffusionParams`` in
-``syntalker_tpu/diffusion/schedule.py`` for what the samplers read: the
-cosine betas of the shipped configuration, respaced once at construction
-('ddimN'), the q-process and posterior terms of DDPM and DDIM, as numpy
-arrays; :meth:`DiffusionParams.gather` reads them at tensor timesteps.
+Counterpart of ``syntalker_tpu/diffusion/schedule.py``: the linear and
+cosine beta schedules, respaced once at construction ('ddimN', a comma
+string of section counts, or a list of them), the q-process and posterior
+terms of DDPM and DDIM, as numpy arrays; :meth:`DiffusionParams.gather`
+reads them at tensor timesteps.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Sequence
 
 import numpy as np
 import torch
+
+
+def linear_betas(num_steps: int, scale_beta: float = 1.0) -> np.ndarray:
+    scale = scale_beta * 1000.0 / num_steps
+    return np.linspace(scale * 1e-4, scale * 0.02, num_steps, dtype=np.float64)
 
 
 def cosine_betas(num_steps: int, max_beta: float = 0.999) -> np.ndarray:
@@ -31,16 +37,42 @@ def cosine_betas(num_steps: int, max_beta: float = 0.999) -> np.ndarray:
     )
 
 
-def space_timesteps(num_timesteps: int, respacing: str) -> list[int]:
-    """The original timesteps kept by a 'ddimN' respacing: N evenly strided
-    steps from 0."""
-    if not respacing.startswith("ddim"):
-        raise ValueError(f"unsupported respacing {respacing!r}: only 'ddimN' is ported")
-    desired = int(respacing[len("ddim") :])
-    for stride in range(1, num_timesteps):
-        if len(range(0, num_timesteps, stride)) == desired:
-            return list(range(0, num_timesteps, stride))
-    raise ValueError(f"cannot create exactly {desired} steps with an integer stride")
+def get_named_beta_schedule(name: str, num_steps: int, scale_beta: float = 1.0) -> np.ndarray:
+    if name == "linear":
+        return linear_betas(num_steps, scale_beta)
+    if name == "cosine":
+        return cosine_betas(num_steps)
+    raise ValueError(f"unknown beta schedule: {name}")
+
+
+def space_timesteps(num_timesteps: int, section_counts) -> list[int]:
+    """The original timesteps a respacing keeps, sorted: 'ddimN' (N evenly
+    strided steps from 0), or section counts as a comma string or a list
+    (the timesteps cut into that many equal sections, each with its count
+    of steps evenly spread over it)."""
+    if isinstance(section_counts, str):
+        if section_counts.startswith("ddim"):
+            desired = int(section_counts[len("ddim") :])
+            for stride in range(1, num_timesteps):
+                if len(range(0, num_timesteps, stride)) == desired:
+                    return list(range(0, num_timesteps, stride))
+            raise ValueError(f"cannot create exactly {desired} steps with an integer stride")
+        section_counts = [int(x) for x in section_counts.split(",")]
+    size_per = num_timesteps // len(section_counts)
+    extra = num_timesteps % len(section_counts)
+    start_idx = 0
+    all_steps: list[int] = []
+    for i, count in enumerate(section_counts):
+        size = size_per + (1 if i < extra else 0)
+        if size < count:
+            raise ValueError(f"cannot divide section of {size} steps into {count}")
+        frac_stride = 1 if count <= 1 else (size - 1) / (count - 1)
+        cur = 0.0
+        for _ in range(count):
+            all_steps.append(start_idx + round(cur))
+            cur += frac_stride
+        start_idx += size
+    return sorted(all_steps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,10 +115,11 @@ class DiffusionParams:
         return a, b
 
 
-def make_diffusion(*, steps: int = 1000, timestep_respacing: str | None = None) -> DiffusionParams:
-    """Cosine schedule over ``steps`` original timesteps, respaced to
-    ``timestep_respacing`` ('ddimN') when given."""
-    betas = cosine_betas(steps)
+def make_diffusion(*, schedule: str = "cosine", steps: int = 1000,
+                   timestep_respacing: str | Sequence[int] | None = None, scale_beta: float = 1.0) -> DiffusionParams:
+    """The named schedule ('cosine' or 'linear') over ``steps`` original
+    timesteps, respaced to ``timestep_respacing`` when given."""
+    betas = get_named_beta_schedule(schedule, steps, scale_beta)
     alphas_cumprod = np.cumprod(1.0 - betas)
 
     if timestep_respacing:

@@ -300,7 +300,7 @@ def sample_windows_fused(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, w
 
 
 @torch.no_grad()
-def decode_latents(latents, *, rvq_modules: dict, stats, latent_scale: float = 5.0):
+def decode_latents(latents, *, rvq_modules: dict, stats, latent_scale: float = 5.0, use_trans: bool = True):
     """Latents (B, T_lat, 1536) in model space -> per-part snap + decode
     (``rvq_modules``: part -> (RVQVAE, RVQState)) -> :func:`decode_parts`."""
     z = latents * latent_scale
@@ -308,19 +308,25 @@ def decode_latents(latents, *, rvq_modules: dict, stats, latent_scale: float = 5
     for name, (lo, hi) in J.LATENT_SLICES.items():
         module, state = rvq_modules[name]
         parts[name] = module.latent2origin(z[..., lo:hi].contiguous(), state)
-    return decode_parts(parts, stats=stats)
+    return decode_parts(parts, stats=stats, use_trans=use_trans)
 
 
-def decode_parts(parts: Dict[str, torch.Tensor], *, stats):
+def decode_parts(parts: Dict[str, torch.Tensor], *, stats, use_trans: bool = True):
     """Normalized per-part features -> full-body rot6d / axis-angle /
-    translation (the lower part's last 3 channels are the root velocity).
-    Jaw and eyes stay zero for the caller to fill."""
+    translation. With ``use_trans`` the lower part's last 3 channels are the
+    root velocity, integrated into ``trans``; without, the lower part is the
+    rotations alone and ``trans`` is None. Jaw and eyes stay zero for the
+    caller to fill."""
     rec_upper = stats.denormalize_part(parts["upper"], "upper")
     rec_hands = stats.denormalize_part(parts["hands"], "hands")
-    trans_v = stats.denormalize_trans(parts["lower"][..., -3:])
-    rec_trans = torch.cumsum(trans_v, dim=-2)
-    rec_trans[..., 1] = trans_v[..., 1]  # height is predicted directly, not integrated
-    rec_lower = stats.denormalize_part(parts["lower"][..., :-3], "lower")
+    lower = parts["lower"]
+    rec_trans = None
+    if use_trans:
+        trans_v = stats.denormalize_trans(lower[..., -3:])
+        rec_trans = torch.cumsum(trans_v, dim=-2)
+        rec_trans[..., 1] = trans_v[..., 1]  # height is predicted directly, not integrated
+        lower = lower[..., :-3]
+    rec_lower = stats.denormalize_part(lower, "lower")
 
     b, t = rec_upper.shape[:2]
     rot6d_full = rec_upper.new_zeros(b, t, J.ROT6D_DIM)

@@ -1,11 +1,13 @@
-"""Rotation conversions on torch tensors: 6D (Zhou et al.) ↔ matrix →
-axis-angle via quaternion.
+"""Rotation conversions on torch tensors: axis-angle ↔ quaternion ↔
+matrix ↔ 6D (Zhou et al.).
 
-Counterpart of ``syntalker_tpu/ops/rotations.py`` (the decode path's half):
-quaternions are (w, x, y, z) with non-negative w; ``matrix_to_rotation_6d``
-takes the first two rows; ``rotation_6d_to_matrix`` Gram-Schmidt
-orthonormalizes rows; the quaternion → axis-angle map keeps the small-angle
-series of sin(θ/2)/θ.
+Counterpart of ``syntalker_tpu/ops/rotations.py`` for the decode path and
+the training data path (``axis_angle_to_rotation_6d``): quaternions are (w,
+x, y, z) with non-negative w; ``matrix_to_rotation_6d`` takes the first two
+rows; ``rotation_6d_to_matrix`` Gram-Schmidt orthonormalizes rows; both
+axis-angle ↔ quaternion maps keep the small-angle series of sin(θ/2)/θ.
+Quaternion products and ``geodesic_distance`` wait for the evaluation
+slice.
 """
 
 from __future__ import annotations
@@ -13,6 +15,20 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-8
+
+
+def axis_angle_to_quaternion(axis_angle: torch.Tensor) -> torch.Tensor:
+    """(..., 3) rotation vectors -> (..., 4) unit quaternions (w, x, y, z),
+    with the series 0.5 - θ²/48 of sin(θ/2)/θ below θ = 1e-6."""
+    angle = torch.linalg.norm(axis_angle, dim=-1, keepdim=True)
+    half = angle * 0.5
+    small = angle < 1e-6
+    sin_half_over_angle = torch.where(
+        small,
+        0.5 - (angle * angle) / 48.0,
+        torch.sin(half) / torch.where(small, torch.ones_like(angle), angle),
+    )
+    return torch.cat([torch.cos(half), axis_angle * sin_half_over_angle], dim=-1)
 
 
 def quaternion_to_axis_angle(quaternion: torch.Tensor) -> torch.Tensor:
@@ -27,6 +43,27 @@ def quaternion_to_axis_angle(quaternion: torch.Tensor) -> torch.Tensor:
         torch.sin(half_angle) / torch.where(small, torch.ones_like(angle), angle),
     )
     return quaternion[..., 1:] / sin_half_over_angle.clamp_min(_EPS)
+
+
+def quaternion_to_matrix(quaternion: torch.Tensor) -> torch.Tensor:
+    """(..., 4) quaternions (w, x, y, z) -> (..., 3, 3) rotation matrices."""
+    w, x, y, z = torch.unbind(quaternion, -1)
+    two_s = 2.0 / (quaternion * quaternion).sum(-1)
+    m = torch.stack(
+        [
+            1 - two_s * (y * y + z * z),
+            two_s * (x * y - z * w),
+            two_s * (x * z + y * w),
+            two_s * (x * y + z * w),
+            1 - two_s * (x * x + z * z),
+            two_s * (y * z - x * w),
+            two_s * (x * z - y * w),
+            two_s * (y * z + x * w),
+            1 - two_s * (x * x + y * y),
+        ],
+        dim=-1,
+    )
+    return m.reshape(quaternion.shape[:-1] + (3, 3))
 
 
 def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
@@ -63,6 +100,11 @@ def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
     return torch.where(quat[..., :1] < 0, -quat, quat)
 
 
+def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
+    """(..., 3) rotation vectors -> (..., 3, 3) matrices (via quaternion)."""
+    return quaternion_to_matrix(axis_angle_to_quaternion(axis_angle))
+
+
 def matrix_to_axis_angle(matrix: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) matrices -> (..., 3) rotation vectors (via quaternion)."""
     return quaternion_to_axis_angle(matrix_to_quaternion(matrix))
@@ -81,3 +123,8 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
     b2 = b2 / torch.linalg.norm(b2, dim=-1, keepdim=True).clamp_min(_EPS)
     b3 = torch.linalg.cross(b1, b2, dim=-1)
     return torch.stack([b1, b2, b3], dim=-2)
+
+
+def axis_angle_to_rotation_6d(axis_angle: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 6), the training data path's features."""
+    return matrix_to_rotation_6d(axis_angle_to_matrix(axis_angle))

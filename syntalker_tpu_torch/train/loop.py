@@ -1,31 +1,65 @@
-"""The body-part RVQ-VAE stack for inference.
+"""The trainers' loops, and the body-part RVQ-VAE stack.
 
-Counterpart of ``_rvq_cfg`` and ``load_rvq_stack`` in
-``syntalker_tpu/train/loop.py``: one RVQ-VAE per body part, sized to a third
-of the denoiser's latent, loaded from checkpoints (npz, see
-:mod:`syntalker_tpu_torch.train.state`: ``params`` and
-``quantizer_state/codebook``) or, without one, initialized from a seed.
-JAX's fresh quantizer state has all-zero codebooks; the port's draws them
-from ``randn`` so that the snap has codes to choose between. The train
-steps are :mod:`~syntalker_tpu_torch.train.rvq_trainer` and
-:mod:`~syntalker_tpu_torch.train.diffusion_trainer`; the trainers' loops
-over a dataset (``DiffusionTrainer``, ``RVQTrainer``) are not ported yet.
+Counterpart of ``syntalker_tpu/train/loop.py`` for the ``beat2`` (330-d
+rot6d) representation on one device:
+
+- ``rvq_config`` and ``load_rvq_stack``: one RVQ-VAE per body part, sized
+  to a third of the denoiser's latent, loaded from npz checkpoints (see
+  :mod:`syntalker_tpu_torch.train.state`) or, without one, initialized from
+  a seed. JAX's fresh quantizer state has all-zero codebooks; the stack's
+  are drawn from ``randn`` so that the snap has codes to choose between.
+- ``RVQTrainer`` trains one body part's RVQ-VAE for a number of
+  iterations, ``DiffusionTrainer`` the denoiser epoch by epoch on latents
+  of the frozen RVQ-VAE encoders. Each step featurizes the batch on the
+  device (``pose_to_part_rot6d``, the pose statistics, the lower part's
+  translation velocity) and runs the train step of
+  :mod:`~syntalker_tpu_torch.train.rvq_trainer` or
+  :mod:`~syntalker_tpu_torch.train.diffusion_trainer`.
+
+Batches come from the host ``BatchLoader`` or, with ``train.device_data``,
+from a ``DeviceDataset``: the whole window set on the trainer's device,
+each batch gathered there by index. A set above the device's budget raises
+``DatasetTooLargeError``, and the trainer logs it and streams host batches
+instead, as JAX's does. Every draw of a step comes from the train state's
+``torch.Generator`` unless the caller passes ``draws``, a callable
+``(it) -> draws`` of the loop's iteration (the CPU tests feed JAX's draws
+this way). More than one device and the ``h3d623`` representation raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import logging
+import time
+from pathlib import Path
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
 
 from syntalker_tpu_torch import bridge
 from syntalker_tpu_torch.config import ExperimentConfig, body_part_rvq_config
 from syntalker_tpu_torch.data import joints as J
+from syntalker_tpu_torch.data.cache import BatchLoader, BeatCache, DatasetTooLargeError, DeviceDataset
+from syntalker_tpu_torch.data.features import pose_to_part_rot6d
+from syntalker_tpu_torch.data.stats import PoseStats, identity_pose_stats, load_pose_stats
+from syntalker_tpu_torch.data.vocab import Vocab
 from syntalker_tpu_torch.device import resolve_device
+from syntalker_tpu_torch.diffusion.schedule import make_diffusion
+from syntalker_tpu_torch.models.denoiser import apply_word_embedding, build_mdm
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
-from syntalker_tpu_torch.ops.quantize import RVQConfig
-from syntalker_tpu_torch.train.state import TRAIN_ONLY_KEYS, load_checkpoint_npz
+from syntalker_tpu_torch.ops.quantize import RVQConfig, init_rvq_state
+from syntalker_tpu_torch.train import optim
+from syntalker_tpu_torch.train import state as ts
+from syntalker_tpu_torch.train.diffusion_trainer import (DiffusionTrainConfig, make_diffusion_train_step,
+                                                         make_latent_encoder)
+from syntalker_tpu_torch.train.rvq_trainer import RVQLossConfig, make_rvq_train_step
+from syntalker_tpu_torch.utils.tracking import EpochTracker, StepTimer, set_random_seed
+
+log = logging.getLogger("syntalker")
 
 H3D_PART_DIMS = {"upper": 156, "hands": 360, "lower": 107}  # the 623-dim representation's parts
+RVQ_SEED_OFFSET = 99  # the RVQ stack's seeds, after the denoiser's
 
 
 def rvq_config(cfg: ExperimentConfig, part: str) -> RVQVAEConfig:
@@ -48,9 +82,226 @@ def load_rvq_stack(cfg: ExperimentConfig, *, seed: int, device=None) -> Dict[str
     for i, part in enumerate(("upper", "hands", "lower")):
         rcfg = rvq_config(cfg, part)
         if i < len(cfg.rvq_ckpts) and cfg.rvq_ckpts[i]:
-            raw = load_checkpoint_npz(cfg.rvq_ckpts[i], skip=TRAIN_ONLY_KEYS)
+            raw = ts.load_checkpoint_npz(cfg.rvq_ckpts[i], skip=ts.TRAIN_ONLY_KEYS)
             out[part] = bridge.rvqvae_from_flax(rcfg, raw["params"], raw["quantizer_state"]["codebook"],
                                                 device=device)
         else:
             out[part] = build_rvqvae(rcfg, seed=seed + i, device=device)
     return out
+
+
+def check_supported(cfg: ExperimentConfig) -> None:
+    """Raise for what the port's trainers do not run yet."""
+    if cfg.train.data_parallel > 1 or cfg.train.model_parallel > 1:
+        raise NotImplementedError(
+            f"train.data_parallel={cfg.train.data_parallel}, train.model_parallel={cfg.train.model_parallel}: "
+            "the port trains on one GPU; data and model parallelism wait for its multi-GPU slice "
+            "(ROADMAP.md, 'Multi-GPU')")
+    if cfg.representation == "h3d623":
+        raise NotImplementedError(
+            "representation h3d623 needs data/h3d.py and SMPL-X forward kinematics, which the port does not "
+            "have yet (ROADMAP.md, 'Training, part B')")
+
+
+def pose_stats(cfg: ExperimentConfig, stats: Optional[PoseStats]) -> PoseStats:
+    """The given stats, else those in ``data.mean_std_dir``, else identity."""
+    if stats is not None:
+        return stats
+    return load_pose_stats(cfg.data.mean_std_dir) if Path(cfg.data.mean_std_dir).exists() else identity_pose_stats()
+
+
+Draws = Optional[Callable[[int], object]]
+
+
+class _Loop:
+    """What both trainers share: the host loader, the device-resident
+    dataset and an epoch's steps from either."""
+
+    device: torch.device
+    loader: BatchLoader
+    _batch_keys: tuple
+
+    def _init_loop(self, cfg: ExperimentConfig, cache: BeatCache, batch_size: int, device) -> None:
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        set_random_seed(cfg.train.seed)
+        self.loader = BatchLoader(cache, batch_size, seed=cfg.train.seed)
+        self._dataset = None
+        self.history: list = []  # one entry a logged iteration
+
+    def device_dataset(self) -> DeviceDataset:
+        """The whole cache on the trainer's device, made at first use."""
+        if self._dataset is None:
+            self._dataset = DeviceDataset(self.loader.cache, self._batch_keys, self.loader.batch_size,
+                                          seed=self.cfg.train.seed, device=self.device)
+            log.info(f"device-resident dataset: {self._dataset.n} windows, {self._dataset.nbytes / 1e9:.2f} GB "
+                     f"copied once to {self.device} ({self._dataset.placement})")
+        return self._dataset
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(batch[k]).to(self.device) for k in self._batch_keys if k in batch}
+
+    def epoch_batches(self, epoch: int):
+        """The epoch's batches as device tensors: gathered from the
+        device-resident dataset with ``train.device_data``, else copied
+        from the host loader's."""
+        if self.cfg.train.device_data:
+            try:
+                ds = self.device_dataset()
+            except DatasetTooLargeError as e:
+                log.warning(f"{e}; streaming batches from the host instead")
+                self.cfg = dataclasses.replace(self.cfg, train=dataclasses.replace(self.cfg.train,
+                                                                                   device_data=False))
+            else:
+                for idx in ds.epoch_indices(epoch):
+                    yield ds.batch(idx)
+                return
+        for batch in self.loader.epoch(epoch):
+            yield self._to_device(batch)
+
+
+class DiffusionTrainer(_Loop):
+    """Epoch-based denoiser training (the reference's
+    diffusion_rvqvae_trainer.py:543-571) on latents of the frozen RVQ stack
+    of ``cfg.rvq_ckpts``."""
+
+    def __init__(self, cfg: ExperimentConfig, cache: BeatCache, stats: Optional[PoseStats] = None, *, device=None):
+        self._init_loop(cfg, cache, cfg.train.batch_size, device)
+        self.stats = pose_stats(cfg, stats)
+        self.mdm = build_mdm(cfg.mdm, seed=cfg.train.seed, device=self.device)
+        if cfg.data.vocab_path and Path(cfg.data.vocab_path).exists():
+            # a vocab that stores the pretrained fasttext matrix seeds the word table
+            vocab = Vocab.load(cfg.data.vocab_path)
+            if vocab.word_embedding_weights is not None:
+                apply_word_embedding(self.mdm, vocab.word_embedding_weights)
+        self.rvq = load_rvq_stack(cfg, seed=cfg.train.seed + RVQ_SEED_OFFSET, device=self.device)
+        self.diffusion = make_diffusion(schedule=cfg.diffusion.schedule, steps=cfg.diffusion.steps,
+                                        timestep_respacing=cfg.diffusion.timestep_respacing or None)
+        self.optimizer = optim.make_diffusion_optimizer(cfg.train.lr, cfg.train.grad_clip)
+        self.state = ts.create_train_state(self.mdm, self.optimizer,
+                                           torch.Generator(self.device).manual_seed(cfg.train.seed))
+        self._encode_latent = make_latent_encoder(self.rvq, self.stats, latent_scale=cfg.latent_scale)
+        self._raw_step = make_diffusion_train_step(self.mdm, self.diffusion, self.optimizer,
+                                                   DiffusionTrainConfig(cfg.pre_frames, cfg.latent_scale))
+        self._batch_keys = ("pose", "trans_v", "audio", "word")
+        self.tracker = EpochTracker({"fid": False, "bc": True, "l1div": True})
+
+    def featurize(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A window batch -> the step's inputs: scaled latents of the frozen
+        encoders, the raw audio and the word ids."""
+        parts = pose_to_part_rot6d(batch["pose"][..., : J.AXIS_ANGLE_DIM])
+        latent_in = self._encode_latent(parts["upper"], parts["hands"], parts["lower"], batch["trans_v"])
+        return {"latent_in": latent_in, "audio": batch["audio"], "word": batch["word"].long()}
+
+    def step(self, state: ts.TrainState, batch: Dict[str, torch.Tensor], draws=None):
+        return self._raw_step(state, self.featurize(batch), draws=draws)
+
+    def maybe_resume(self) -> int:
+        """Restore the whole train state from ``train.resume`` or the newest
+        checkpoint in ``train.ckpt_dir``. Returns the restored step (0 when
+        there is none)."""
+        path = self.cfg.train.resume or ts.latest_checkpoint(self.cfg.train.ckpt_dir)
+        if not path:
+            return 0
+        ts.load_checkpoint(path, self.state)
+        log.info(f"resumed from {path} at step {self.state.step}")
+        return self.state.step
+
+    def train_epoch(self, epoch: int, draws: Draws = None) -> Dict[str, float]:
+        """One epoch. ``draws(it)`` gives iteration it's draws (default: the
+        state's generator). With ``train.debug`` the epoch stops after two
+        iterations with a save and a load of the checkpoint."""
+        timer, last = StepTimer(), (time.perf_counter(), -1)
+        for it, batch in enumerate(self.epoch_batches(epoch)):
+            timer.mark_data()
+            self.state, metrics = self.step(self.state, batch, draws=draws(it) if draws else None)
+            if it % self.cfg.train.log_period == 0:
+                loss = float(metrics["predict_x0_loss"])
+                self.tracker.update("predict_x0_loss", "train", loss)
+                timer.mark_step()
+                now = time.perf_counter()
+                self.history.append({"epoch": epoch, "it": it, "loss": loss, "data_ms": 1e3 * timer.data_s,
+                                     "step_ms": 1e3 * timer.step_s,
+                                     "ms_per_step": 1e3 * (now - last[0]) / (it - last[1])})
+                last = (now, it)
+                log.info(f"epoch {epoch} it {it}: loss {loss:.4f} "
+                         f"(data {timer.data_s * 1e3:.0f}ms step {timer.step_s * 1e3:.0f}ms)")
+            if self.cfg.train.debug and it >= 1:
+                # the checkpoint round trip of a debug run
+                path = self.save()
+                ts.load_checkpoint(path, self.state)
+                break
+        return self.tracker.end_epoch(epoch)
+
+    def save(self, step: Optional[int] = None) -> Path:
+        return ts.save_checkpoint(self.cfg.train.ckpt_dir, self.state, step)
+
+
+class RVQTrainer(_Loop):
+    """Iteration-based training of one body part's RVQ-VAE
+    (``rvq_train.body_part``; the reference's rvq_beatx_train.py:333-404)."""
+
+    def __init__(self, cfg: ExperimentConfig, cache: BeatCache, stats: Optional[PoseStats] = None, *, device=None):
+        self._init_loop(cfg, cache, cfg.rvq_train.batch_size, device)
+        rt = cfg.rvq_train
+        self.part = rt.body_part
+        self.stats = pose_stats(cfg, stats)
+        rcfg = rvq_config(cfg, self.part)
+        self.module = build_rvqvae(rcfg, seed=cfg.train.seed, device=self.device)[0]
+        self.optimizer = optim.make_rvq_optimizer(rt.lr, rt.warmup_iters, rt.milestones, rt.gamma)
+        self.state = ts.create_train_state(self.module, self.optimizer,
+                                           torch.Generator(self.device).manual_seed(cfg.train.seed),
+                                           quantizer_state=init_rvq_state(rcfg.quantizer, self.device))
+        self.use_trans = self.part == "lower" and cfg.data.use_trans
+        self._raw_step = make_rvq_train_step(self.module, self.optimizer,
+                                             RVQLossConfig(commit_weight=rt.commit_weight))
+        self._batch_keys = ("pose", "trans_v")
+        self.tracker = EpochTracker()
+
+    def featurize(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """A window batch -> the part's normalized rot6d features, with the
+        normalized translation velocity on the lower part when
+        ``data.use_trans``."""
+        parts = pose_to_part_rot6d(batch["pose"][..., : J.AXIS_ANGLE_DIM])
+        x = self.stats.normalize_part(parts[self.part], self.part)
+        if self.use_trans:
+            x = torch.cat([x, self.stats.normalize_trans(batch["trans_v"])], dim=-1)
+        return x
+
+    def step(self, state: ts.TrainState, batch: Dict[str, torch.Tensor], draws=None):
+        return self._raw_step(state, self.featurize(batch), draws=draws)
+
+    def train(self, total_iters: Optional[int] = None, draws: Draws = None) -> ts.TrainState:
+        """``total_iters`` steps (default ``rvq_train.total_iters``), epoch
+        after epoch, with a checkpoint every ``rvq_train.save_every``.
+        ``draws(it)`` gives the draws of the loop's iteration it (from 0)."""
+        total = total_iters or self.cfg.rvq_train.total_iters
+        if len(self.loader) == 0:
+            raise ValueError(f"no full batches: {len(self.loader.cache)} windows < batch size "
+                             f"{self.loader.batch_size}")
+        it, epoch = 0, 0
+        timer, last = StepTimer(), (time.perf_counter(), 0)
+        while it < total:
+            for batch in self.epoch_batches(epoch):
+                timer.mark_data()
+                self.state, metrics = self.step(self.state, batch, draws=draws(it) if draws else None)
+                it += 1
+                if it % self.cfg.train.log_period == 0:
+                    m = {k: float(metrics[k]) for k in ("loss", "recon", "perplexity")}
+                    timer.mark_step()
+                    now = time.perf_counter()
+                    self.history.append({"it": it, **m, "data_ms": 1e3 * timer.data_s, "step_ms": 1e3 * timer.step_s,
+                                         "ms_per_step": 1e3 * (now - last[0]) / (it - last[1])})
+                    last = (now, it)
+                    log.info(f"iter {it}: loss {m['loss']:.4f} recon {m['recon']:.4f} "
+                             f"perplexity {m['perplexity']:.1f}")
+                if it % self.cfg.rvq_train.save_every == 0:
+                    self.save(it)
+                if it >= total:
+                    break
+            epoch += 1
+        return self.state
+
+    def save(self, step: Optional[int] = None) -> Path:
+        return ts.save_checkpoint(Path(self.cfg.train.ckpt_dir) / f"rvq_{self.part}", self.state, step)

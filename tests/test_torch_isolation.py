@@ -1,8 +1,9 @@
 """The port stands alone: importing ``syntalker_tpu_torch`` (every
-submodule, the train steps and optimizers included) and ``chip_smoke.py``
-pulls in neither JAX, flax, optax, orbax nor the JAX package, entry points
-refuse to fall back to the CPU silently, and the ctypes signatures agree
-with the C entry points of the CUDA sources."""
+submodule, the train steps, optimizers, trainers, data path, registries
+and train CLIs included) and ``chip_smoke.py`` pulls in neither JAX, flax,
+optax, orbax nor the JAX package, nor does running the train CLIs'
+``--help``; entry points refuse to fall back to the CPU silently, and the
+ctypes signatures agree with the C entry points of the CUDA sources."""
 
 import ast
 import ctypes
@@ -26,7 +27,8 @@ from syntalker_tpu_torch.serving import MotionGenerationService
 from syntalker_tpu_torch.streaming import StreamingMotionSession
 from syntalker_tpu_torch.bridge import rvq_state_from_flax
 from syntalker_tpu_torch.train import diffusion_trainer, optim, rvq_trainer
-from syntalker_tpu_torch.train.loop import load_rvq_stack
+from syntalker_tpu_torch.data.cache import BeatCache, DeviceDataset
+from syntalker_tpu_torch.train.loop import DiffusionTrainer, RVQTrainer, load_rvq_stack
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "syntalker_tpu_torch"
@@ -51,6 +53,30 @@ def test_train_modules_are_walked():
     assert {"optax", "orbax"} <= set(FORBIDDEN)
     assert callable(optim.make_optimizer) and callable(rvq_trainer.make_rvq_train_step)
     assert callable(diffusion_trainer.make_diffusion_train_step)
+
+
+def test_data_and_loop_modules_are_walked():
+    """The training data path, the loops, the registries and the train CLIs
+    are among the modules the probe imports."""
+    for rel in ("data/synthetic.py", "data/cache.py", "data/beat_builder.py", "data/features.py", "train/loop.py",
+                "registry.py", "components.py", "cli/train.py", "cli/train_rvq.py", "utils/tracking.py"):
+        assert (PKG / rel).exists(), rel
+
+
+@pytest.mark.parametrize("cli", ("train", "train_rvq"))
+def test_train_cli_help_pulls_in_no_jax(cli):
+    code = ("import json, runpy, sys\n"
+            f"sys.argv = ['{cli}', '--help']\n"
+            "try:\n"
+            f"    runpy.run_module('syntalker_tpu_torch.cli.{cli}', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            f"print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in {set(FORBIDDEN)})))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_import_pulls_in_no_jax():
@@ -92,6 +118,11 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
         GEN.generate_clip(tiny, "missing.wav")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rvq_state_from_flax({"codebook": [[[0.0]]]})
+    for trainer in (RVQTrainer, DiffusionTrainer):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trainer(tiny, BeatCache("unused"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceDataset(BeatCache("unused"), ("pose",), 1)
 
 
 def test_ctypes_signatures_match_the_sources():

@@ -49,8 +49,16 @@ those RVQ-VAEs; ``generate`` on the checkpoints (exact counts, every K3
 call against the plain version); then, on the trained decoders, the
 decoder's reach, the K1 stream against the whole clip decoded at once
 (reported beside the stream's margins) and two f32 decodes of the same
-codes, on the card and on the CPU. Takes about seven minutes on an H100,
-the ~10 s build included (``train_loop`` about three).
+codes, on the card and on the CPU; last, ``evaluate`` in the same
+directory: the FGD eval VAE trained by ``cli.train_aux.main()``, then
+``cli.test.main()`` over the corpus's 8 test clips (DDIM-50, 4 clips a
+batch, the synthetic SMPL-X model; exact K2 and K3 counts, every K3 call
+against the plain version, the metrics' ranges and the time split), the
+mean joint velocity against the CPU's, one bucket on the plain f32
+sampler, one clip under the yaml's DDPM-1000, FGD's embedding on the card
+against the CPU, and face LBS at 10,450 vertices. Takes about seven
+minutes on an H100, the ~10 s build included (``train_loop`` with
+``evaluate`` about three and a half).
 Prints one JSON line per phase, then the ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
@@ -78,8 +86,11 @@ from scipy.io import wavfile
 from syntalker_tpu_torch import generation as G
 from syntalker_tpu_torch import native
 from syntalker_tpu_torch.cli import generate as GEN
+from syntalker_tpu_torch.cli import test as TEST
 from syntalker_tpu_torch.cli import train as TRAIN
+from syntalker_tpu_torch.cli import train_aux as TRAIN_AUX
 from syntalker_tpu_torch.cli import train_rvq as TRAIN_RVQ
+from syntalker_tpu_torch.cli.common import load_smplx_if_available
 from syntalker_tpu_torch.config import load_config
 from syntalker_tpu_torch.data import audio as A
 from syntalker_tpu_torch.data import joints as J
@@ -87,13 +98,15 @@ from syntalker_tpu_torch.data.audio import onset_amplitude_features
 from syntalker_tpu_torch.data.beat_builder import build_beat_cache
 from syntalker_tpu_torch.data.cache import BeatCache, ClipConfig
 from syntalker_tpu_torch.data.features import pose_to_part_rot6d
-from syntalker_tpu_torch.data.stats import identity_pose_stats
+from syntalker_tpu_torch.data.stats import compute_mean_velocity_from_clips, identity_pose_stats
 from syntalker_tpu_torch.device import full_f32
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
+from syntalker_tpu_torch.eval.metrics import frechet_distance
 from syntalker_tpu_torch.models.denoiser import Conditioning, MDMConfig, build_mdm
 from syntalker_tpu_torch.models.tmr import TextPipeline, embed_prompts
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae, draw_rvqvae
 from syntalker_tpu_torch.ops import _build, mdm_cuda, quantize_cuda
+from syntalker_tpu_torch.ops import smplx as SMPLX
 from syntalker_tpu_torch.ops.quantize import _tile_to_codebook, code_distances, init_rvq_state
 from syntalker_tpu_torch.serving import MotionGenerationService, MotionRequest
 from syntalker_tpu_torch.streaming import StreamingMotionSession
@@ -1866,6 +1879,197 @@ def trained_stream(mdm, diffusion, rvq) -> dict:
             "chunked_tol": STREAM_ATOL, "whole_clip_decode": run.whole}
 
 
+# ---------------------------------------------------------------------------
+# evaluate phase: BEAT2 evaluation on the checkpoints train_loop trained
+# ---------------------------------------------------------------------------
+
+EVAL_VAE_ITERS, EVAL_VAE_LOG = 300, 50  # the FGD eval VAE's iterations on the corpus's 32-frame windows
+EVAL_BATCH_CLIPS = 4
+EVAL_RESPACING = ["diffusion.timestep_respacing=ddim50", "diffusion.sampler=ddim"]  # a cut: the yaml's is DDPM-1000
+FACE_VPJ, FACE_FRAMES = 190, 480  # 55 x 190 = 10,450 vertices (the release has 10,475); a 16 s clip
+MEAN_VEL_REL = 1e-4  # f32 FK on the card and on the CPU, sums in another order; a speed is a difference of positions
+LBS_ABS = 1e-4  # vertices (metres) from f32 skinning on the card and on the CPU
+
+
+def eval_overrides(d: Path, rvq_paths, mdm_path) -> list:
+    ckpts = [f"rvq_ckpts=[{','.join(map(str, rvq_paths))}]"] + ([f"test_ckpt={mdm_path}"] if mdm_path else [])
+    return [*loop_overrides(d), "data.smplx_model_path=synthetic", *ckpts]
+
+
+def expected_k2(ev, groups: list, samples: dict, steps: int, num_layers: int) -> int:
+    """Kernels of K2 over ``groups``: one pass a step a window, plus one
+    pass the first time each batch size runs (before its graph is captured)."""
+    windows = sum(ev.plan(samples[g[0]]).num_windows for g in groups)
+    return (windows * steps + len({len(g) for g in groups})) * mdm_cuda.block_launches(num_layers)
+
+
+def eval_vae_train(d: Path, iters: int) -> tuple:
+    """``cli.train_aux --model eval_vae`` on the corpus; (phase dict, checkpoint)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aux = TRAIN_AUX.main(["-c", RVQ_CONFIG, "--model", "eval_vae", "--iters", str(iters), "--run-dir", str(d / "run"),
+                          f"train.log_period={EVAL_VAE_LOG}", *loop_overrides(d)])
+    wall_s = time.perf_counter() - t0
+    first, last = aux["history"][0], aux["history"][-1]
+    out = {"iters": iters, "batch": load_config(RVQ_CONFIG).train.batch_size, "window": 32, "wall_s": wall_s,
+           "first_log": first, "last_log": last, "ms_per_step_last_log": last["ms_per_step"],
+           "recon_fell": last["recon"] < first["recon"]}
+    assert out["recon_fell"] and np.isfinite(last["loss"]), (first, last)
+    return out, aux["path"]
+
+
+def fgd_card_vs_cpu(ev, results: Path, n_clips: int) -> dict:
+    """The split's res_/gt_ axis-angle as rot6d on the CPU, embedded by the
+    eval VAE on the card and by its copy on the CPU: the embeddings' largest
+    gap and the FGD of each."""
+    cpu_vae = copy.deepcopy(ev.eval_vae).cpu()
+    lat = {"card": ([], []), "cpu": ([], [])}
+    for i in range(n_clips):
+        for k, prefix in enumerate(("res", "gt")):
+            with np.load(results / f"{prefix}_{i:03d}.npz") as f:
+                rot6d = pose_to_part_rot6d(torch.as_tensor(f["poses"][None]))["full"]
+            n = rot6d.shape[1] - rot6d.shape[1] % ev.vae_test_len
+            with torch.no_grad():
+                lat["card"][k].append(ev.eval_vae.map2latent(rot6d[:, :n].to(DEV)).reshape(-1, 240).cpu().numpy())
+                lat["cpu"][k].append(cpu_vae.map2latent(rot6d[:, :n]).reshape(-1, 240).numpy())
+    gap = max(float(np.abs(a - b).max()) for k in (0, 1) for a, b in zip(lat["card"][k], lat["cpu"][k]))
+    fid = {dev: frechet_distance(np.concatenate(lat[dev][0]), np.concatenate(lat[dev][1])) for dev in lat}
+    return {"embedding_max_abs_gap": gap, "fid_card": fid["card"], "fid_cpu": fid["cpu"],
+            "fid_rel_gap": abs(fid["card"] - fid["cpu"]) / abs(fid["cpu"])}
+
+
+def face_lbs_at_release_size(clip: dict) -> dict:
+    """``lbs`` of a face-only pose on ``synthetic_smplx_model(verts_per_joint=190)``
+    over FACE_FRAMES frames (a (T, V, 4, 4) transform stack), on the card
+    (ms, peak memory) and on the CPU (the vertices' gap), and the joints-only
+    FK on the same frames."""
+    model = SMPLX.synthetic_smplx_model(verts_per_joint=FACE_VPJ, device=DEV)
+    reps = -(-FACE_FRAMES // clip["poses"].shape[0])
+    poses = np.concatenate([clip["poses"]] * reps)[:FACE_FRAMES]
+    face = np.zeros_like(poses)
+    face[:, 66:75] = poses[:, 66:75]
+    facial = np.concatenate([clip["facial"]] * reps)[:FACE_FRAMES]
+    args = [torch.as_tensor(a) for a in (face, np.tile(clip["betas"], (FACE_FRAMES, 1)), facial)]
+    card = [a.to(DEV) for a in args]
+    with torch.no_grad(), full_f32():
+        torch.cuda.reset_peak_memory_stats()
+        lbs_ms = cuda_ms(lambda: SMPLX.lbs(model, card[0], card[1], expressions=card[2]), 5)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        verts = SMPLX.lbs(model, card[0], card[1], expressions=card[2])["vertices"].cpu()
+        fk_ms = cuda_ms(lambda: SMPLX.forward_joints(model, card[0], card[1]), 5)
+        t0 = time.perf_counter()
+        ref = SMPLX.lbs(model.to("cpu"), *args[:2], expressions=args[2])["vertices"]
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+    out = {"vertices": model.v_template.shape[0], "frames": FACE_FRAMES, "lbs_ms": lbs_ms, "lbs_peak_gb": peak_gb,
+           "fk_joints_ms": fk_ms, "cpu_lbs_ms": cpu_ms, "vertices_max_abs_gap": float((verts - ref).abs().max()),
+           "tol": LBS_ABS}
+    assert out["vertices_max_abs_gap"] <= LBS_ABS, out
+    return out
+
+
+def phase_evaluate(d: Path, rvq_paths: list, mdm_path, mdm_overrides=(), eval_vae_iters: int = EVAL_VAE_ITERS) -> dict:
+    """BEAT2 evaluation on the card, in ``train_loop``'s directory on its
+    checkpoints: the FGD eval VAE trained by ``cli.train_aux``; the test
+    split through ``cli.test`` on ``configs/diffusion_beat2.yaml`` (DDIM-50,
+    ``--batch-clips`` 4, the synthetic SMPL-X model): exact K2 and K3
+    counts, every K3 call against the plain version, the metrics' ranges,
+    the time split, the mean joint velocity the CLI computed held against
+    the CPU's, one bucket on the plain f32 sampler; then one clip under the
+    yaml's own DDPM-1000; FGD's embedding card against CPU; and face LBS at
+    the release's vertex count."""
+    out = {"phase": "evaluate", "card": card_name_and_power_limit()}
+    t_phase = time.perf_counter()
+    out["eval_vae"], vae_path = eval_vae_train(d, eval_vae_iters)
+
+    ov = [*eval_overrides(d, rvq_paths, mdm_path), *mdm_overrides]
+    argv = ["-c", BEAT2_CONFIG, "--run-dir", str(d / "run_eval"), "--eval-vae-ckpt", str(vae_path),
+            "--batch-clips", str(EVAL_BATCH_CLIPS), *EVAL_RESPACING, *ov]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_k3() as k3_calls:
+        result = TEST.main(argv)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = {**mdm_cuda.launches, **quantize_cuda.launches}
+    cfg = load_config(BEAT2_CONFIG, [*EVAL_RESPACING, *ov])
+    smplx = load_smplx_if_available(cfg, DEV)
+    cache = BeatCache.open(d / "cache" / "test")
+    mean_vel = np.load(d / "cache" / TEST.MEAN_VEL_FILE)
+    ev = TEST.build_evaluator(cfg, smplx, str(vae_path), mean_vel, device=DEV)
+    samples = {i: cache.get(i) for i in range(len(cache))}
+    groups = ev.groups(samples, EVAL_BATCH_CLIPS)
+    want = {"ddim_window": 0, "rvq_encode": 3 * len(groups),
+            "block_stack": expected_k2(ev, groups, samples, ev.diffusion.num_steps, cfg.mdm.num_layers)}
+    assert counts == want, (counts, want)
+    k3 = k3_calls_check(k3_calls)
+    metrics = result.as_dict()
+    assert result.clips == len(cache) and np.isfinite([result.fid, result.l1div, result.srgr]).all(), metrics
+    assert 0.0 <= result.bc <= 1.0, metrics
+
+    # the CLI's mean joint velocity (FK on the card) against the same on the CPU
+    t0 = time.perf_counter()
+    mv_card = compute_mean_velocity_from_clips(list(cache.clips.values()), smplx)
+    mv_card_s = time.perf_counter() - t0
+    mv_cpu = compute_mean_velocity_from_clips(list(cache.clips.values()), smplx.to("cpu"))
+    mean_velocity = {"card_s": mv_card_s, "rel_err_vs_cpu": rel_err(torch.as_tensor(mean_vel), torch.as_tensor(mv_cpu)),
+                     "cli_equals_recomputed": bool(np.array_equal(mean_vel, mv_card)), "tol": MEAN_VEL_REL}
+    assert mean_velocity["rel_err_vs_cpu"] <= MEAN_VEL_REL, mean_velocity
+
+    # one bucket of the split on the plain f32 sampler against K2 (same draws)
+    group = max(groups, key=len)
+    plan = min((ev.plan(samples[i]) for i in group), key=lambda p: p.n_frames)
+
+    def bucket(denoise=None):
+        noises = [ev.clip_noise(999, i, plan) for i in group]
+        return ev.sample_latents([samples[i] for i in group], noises, denoise=denoise)[0]
+
+    mdm = ev.mdm
+    sampler_err = rel_err(bucket(), bucket(lambda x_t, t_emb, cond: mdm.denoise(x_t, None, cond, t_emb=t_emb,
+                                                                                  dtype=torch.float32)))
+    assert sampler_err <= SAMPLER_REL, sampler_err
+
+    # the paper's protocol on one clip: the yaml's DDPM over 1,000 steps
+    cfg_ddpm = load_config(BEAT2_CONFIG, ov)
+    ev_ddpm = TEST.build_evaluator(cfg_ddpm, smplx, str(vae_path), mean_vel, device=DEV)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ddpm = ev_ddpm.evaluate(cache, 999, max_clips=1)
+    torch.cuda.synchronize()
+    ddpm_s = time.perf_counter() - t0
+    ddpm_counts = {**mdm_cuda.launches, **quantize_cuda.launches}
+    ddpm_want = {"ddim_window": 0, "rvq_encode": 3,
+                 "block_stack": expected_k2(ev_ddpm, [[0]], samples, ev_ddpm.diffusion.num_steps, cfg.mdm.num_layers)}
+    assert ddpm_counts == ddpm_want and np.isfinite(ddpm.fid), (ddpm_counts, ddpm_want, ddpm)
+
+    out.update({
+        "config": BEAT2_CONFIG, "cuts": ["DDIM-50 in place of the yaml's DDPM-1000 for the split",
+                                         f"synthetic corpus (speakers {list(LOOP_SPEAKERS)}, {len(cache)} test clips "
+                                         f"of {LOOP_SECONDS[0]:g}-{LOOP_SECONDS[1]:g} s)",
+                                         "synthetic SMPL-X model", "identity pose statistics",
+                                         f"eval VAE trained {eval_vae_iters} iterations"],
+        "dtype": str(cfg.mdm.dtype), "clips": result.clips, "batch_clips": EVAL_BATCH_CLIPS, "batches": len(groups),
+        "windows": [ev.plan(samples[g[0]]).num_windows for g in groups], "steps": ev.diffusion.num_steps,
+        "metrics": {k: metrics[k] for k in ("fid", "bc", "l1div", "srgr")}, "wall_s": wall_s,
+        "motion_seconds": result.motion_seconds, "motion_s_per_s": result.motion_seconds / wall_s,
+        "evaluate_wall_s": result.wall_seconds, "stage_seconds": result.stage_seconds, "launches": counts,
+        "rvq_kernels": counts["rvq_encode"] * quantize_cuda.rvq_kernel_launches(6), "k3_vs_plain": k3,
+        "mean_velocity": mean_velocity,
+        "sampler_vs_plain_f32": {"clips": len(group), "windows": plan.num_windows, "latent_rel_err": sampler_err,
+                                 "tol": SAMPLER_REL},
+        "ddpm1000_clip": {"windows": ev_ddpm.plan(samples[0]).num_windows, "frames": ddpm.motion_seconds * 30,
+                          "steps": ev_ddpm.diffusion.num_steps, "wall_s": ddpm_s,
+                          "stage_seconds": ddpm.stage_seconds, "launches": ddpm_counts,
+                          "metrics": {k: getattr(ddpm, k) for k in ("fid", "bc", "l1div", "srgr")}},
+        "fgd_card_vs_cpu": fgd_card_vs_cpu(ev, d / "run_eval" / "results", result.clips),
+        "face_lbs": face_lbs_at_release_size(max(cache.clips.values(), key=lambda c: c["poses"].shape[0])),
+    })
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def phase_train_loop(rvq_iters: int = LOOP_RVQ_ITERS, rvq_overrides=(), mdm_overrides=()) -> dict:
     """Training part B on the card: a synthetic BEAT2 corpus and its window
     caches; ``cli.train_rvq.main()`` on ``configs/rvq_beat2.yaml`` for the
@@ -1901,6 +2105,7 @@ def phase_train_loop(rvq_iters: int = LOOP_RVQ_ITERS, rvq_overrides=(), mdm_over
                          "framework_gap": framework_gap(rvq, lat),
                          "stream": trained_stream(mdm, diffusion, rvq)}
         emit({"phase": "train_loop", "card": out["card"], "faults": out["faults"]})
+        out["evaluate"] = phase_evaluate(d, paths, mdm_path, mdm_overrides)
     return out
 
 
@@ -1943,6 +2148,7 @@ def main() -> int:
     gen["trained_loop"] = loop["generate"]
     trained_stream_launches = loop["faults"]["stream"]["launches"]
     trained_stream_launches["rvq_kernels"] = loop["faults"]["stream"]["rvq_kernels"]
+    evaluate_launches = {**loop["evaluate"]["launches"], "rvq_encode": loop["evaluate"]["rvq_kernels"]}
 
     src = "syntalker_tpu_torch/csrc/"
     k3_row = k3[SERVE_BATCH * 116]
@@ -1968,6 +2174,7 @@ def main() -> int:
          "generate_launches": {k: (v["launches"][name] if name != "rvq_encode" else v["rvq_kernels"])
                                for k, v in gen.items()},
          "trained_stream_launches": trained_stream_launches[name if name != "rvq_encode" else "rvq_kernels"],
+         "evaluate_launches": evaluate_launches[name],
          "error_vs_tol": err}
         for name, source, replaces, r, launches, prompted, streamed, encoded, err in rows
     ]})

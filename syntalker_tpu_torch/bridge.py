@@ -13,12 +13,13 @@ in both directions:
 - LayerNorm / GroupNorm / BatchNorm ``scale`` <-> ``weight``; the BatchNorm
   ``batch_stats`` ``mean`` / ``var`` <-> ``running_mean`` / ``running_var``;
 - a ModuleList entry ``blocks.i`` is flax's ``block_i`` (``down_i``,
-  ``res_i``, ``up_i``, the MotionCLIP decoder's ``ln_q{i}``, ``cross{i}``,
-  ``fc1_{i}``...); the MDM's scan-stacked ``blocks/block/*`` hold the
+  ``res_i``, ``up_i``, ``conv_i``, ``layer_i``, the MotionCLIP decoder's
+  ``ln_q{i}``, ``cross{i}``, ``fc1_{i}``...); the MDM's scan-stacked ``blocks/block/*`` hold the
   layers on axis 0 (an unrolled ``block_i`` tree, ``scan_blocks=False``, is
   read as it is);
 - ``word_embedding``, ``uncond_prompt_embedding``, the TMR ``dist_tokens``,
-  the MotionCLIP decoder's ``time_queries`` and the RVQ codebooks (Q, K, D)
+  the MotionCLIP decoder's ``time_queries``, the RVQ codebooks (Q, K, D),
+  the face VQ-VAE's codebook and the skeleton convs' (k, in, out) kernels
   are carried as they are.
 
 An MDM is loaded from its flax variables: ``{'params': ..., 'batch_stats':
@@ -41,6 +42,7 @@ import torch
 
 from syntalker_tpu_torch.device import resolve_device
 from syntalker_tpu_torch.models.denoiser import MDM, BatchNorm, MDMConfig, TransformerBlock
+from syntalker_tpu_torch.models.eval_vae import EvalVAEConfig, VAESKConv, VQVAEConvZero
 from syntalker_tpu_torch.models.motionclip import MotionCLIP, MotionCLIPDecoder
 from syntalker_tpu_torch.models.rvqvae import RVQVAE, RVQVAEConfig
 from syntalker_tpu_torch.models.tmr import ActorAgnosticEncoder, Attention, DistilbertTextEncoder
@@ -48,7 +50,8 @@ from syntalker_tpu_torch.ops.quantize import RVQState
 
 # ModuleList name -> flax name of entry i
 _INDEXED = {"blocks": "block_{}", "down": "down_{}", "res": "res_{}", "up": "up_{}", "ln_q": "ln_q{}",
-            "ln_f": "ln_f{}", "cross": "cross{}", "fc1": "fc1_{}", "fc2": "fc2_{}"}
+            "ln_f": "ln_f{}", "cross": "cross{}", "fc1": "fc1_{}", "fc2": "fc2_{}", "conv": "conv_{}",
+            "layer": "layer_{}"}
 _NORMS = (torch.nn.LayerNorm, torch.nn.GroupNorm, BatchNorm)
 
 
@@ -242,6 +245,22 @@ def load_motionclip(model: MotionCLIP, p: dict) -> MotionCLIP:
 def load_motionclip_decoder(dec: MotionCLIPDecoder, p: dict) -> MotionCLIPDecoder:
     """A flax ``MotionCLIPDecoder`` tree."""
     return FlaxLayout(dec).load(dec, p)
+
+
+def load_eval_vae(module: torch.nn.Module, params: dict) -> torch.nn.Module:
+    """Copy a flax ``VAESKConv`` or ``VQVAEConvZero`` param tree (numpy
+    arrays) into ``module``."""
+    return FlaxLayout(module).load(module, params.get("params", params))
+
+
+def eval_vae_from_flax(params: dict, cfg: EvalVAEConfig = EvalVAEConfig(), *, device=None) -> VAESKConv:
+    """The FGD eval VAE, in eval mode, from a flax param tree."""
+    return load_eval_vae(VAESKConv(cfg), params).to(resolve_device(device)).eval().requires_grad_(False)
+
+
+def face_vqvae_from_flax(params: dict, *, device=None) -> VQVAEConvZero:
+    """The face VQ-VAE, in eval mode, from a flax param tree."""
+    return load_eval_vae(VQVAEConvZero(), params).to(resolve_device(device)).eval().requires_grad_(False)
 
 
 def mdm_from_flax(cfg: MDMConfig, variables: dict, *, device=None) -> MDM:

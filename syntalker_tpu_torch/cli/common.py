@@ -1,9 +1,9 @@
 """Shared CLI plumbing: the base parser, config loading, logging, SMPL-X.
 
 Counterpart of ``syntalker_tpu/cli/common.py``. ``load_smplx_if_available``
-returns None where JAX's does (no path, or a path that does not exist);
-a model it would load (``"synthetic"`` or an existing file) raises until
-the port has ``ops/smplx.py``.
+has JAX's three outcomes: the synthetic stand-in model for ``"synthetic"``,
+the released npz for a path that exists, else None; the model's tensors
+go to ``device``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import argparse
 from pathlib import Path
 
 from syntalker_tpu_torch.config import ExperimentConfig, load_config
+from syntalker_tpu_torch.ops.smplx import load_smplx_npz, synthetic_smplx_model
 from syntalker_tpu_torch.utils.tracking import setup_logging
 
 
@@ -28,10 +29,12 @@ def setup(args) -> ExperimentConfig:
     return load_config(args.config, args.overrides)
 
 
-def load_smplx_if_available(cfg: ExperimentConfig):
+def load_smplx_if_available(cfg: ExperimentConfig, device=None):
     p = cfg.data.smplx_model_path
-    if p == "synthetic" or (p and Path(p).exists()):
-        raise NotImplementedError(
-            f"data.smplx_model_path={p!r}: SMPL-X forward kinematics (ops/smplx.py) is not ported yet; "
-            "leave the path empty to build caches without foot contacts and h3d arrays")
+    if p == "synthetic":
+        # geometry-plausible stand-in: h3d features and joint metrics run, but
+        # the joints are not the released body's
+        return synthetic_smplx_model(device=device)
+    if p and Path(p).exists():
+        return load_smplx_npz(p, device=device)
     return None

@@ -28,7 +28,7 @@ def main(argv=None):
     p.add_argument("--device", type=str, default=None, help="cuda (the default) or cpu")
     args = p.parse_args(argv)
     cfg = setup(args)
-    smplx_model = load_smplx_if_available(cfg)
+    smplx_model = load_smplx_if_available(cfg, args.device)
 
     clip_cfg = ClipConfig(pose_fps=cfg.data.pose_fps, audio_sr=cfg.data.audio_sr,
                           pose_length=cfg.rvq_train.window, stride=cfg.data.stride)

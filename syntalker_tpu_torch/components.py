@@ -3,10 +3,10 @@
 Counterpart of ``syntalker_tpu/components.py`` for what the port has:
 importing this module fills the registries with the BEAT2 dataset builder,
 the models (``MDM``/``denoiser``, ``RVQVAE``/``rvqvae``, ``MotionCLIP``,
-``TMRMotion``), the trainers and the samplers. The CLIs resolve configured
-names through them. The ``amass_npz`` and ``beat_sep_lower_h3d`` datasets,
-the evaluation models and ``TMRText`` are registered by the slices that
-port them.
+``TMRMotion``), the evaluation models (``VAESKConv``, ``VQVAEConvZero``),
+the trainers and the samplers. The CLIs resolve configured names through
+them. The ``amass_npz`` and ``beat_sep_lower_h3d`` datasets and
+``TMRText`` are registered by the slices that port them.
 """
 
 from __future__ import annotations
@@ -15,10 +15,11 @@ from syntalker_tpu_torch.data.beat_builder import build_beat_cache
 from syntalker_tpu_torch.diffusion.core import ddim_sample, ddpm_sample
 from syntalker_tpu_torch.diffusion.extras import plms_sample
 from syntalker_tpu_torch.models.denoiser import MDM, build_mdm
+from syntalker_tpu_torch.models.eval_vae import VAESKConv, VQVAEConvZero
 from syntalker_tpu_torch.models.motionclip import MotionCLIP
 from syntalker_tpu_torch.models.rvqvae import RVQVAE, build_rvqvae
 from syntalker_tpu_torch.models.tmr import ActorAgnosticEncoder
-from syntalker_tpu_torch.registry import DATASETS, MODELS, SAMPLERS, TRAINERS
+from syntalker_tpu_torch.registry import DATASETS, EVAL_MODELS, MODELS, SAMPLERS, TRAINERS
 from syntalker_tpu_torch.train.loop import DiffusionTrainer, RVQTrainer
 
 # datasets (reference: dataloaders/<name>.py CustomDataset)
@@ -31,6 +32,10 @@ MODELS.register("RVQVAE")(RVQVAE)
 MODELS.register("rvqvae")(build_rvqvae)
 MODELS.register("MotionCLIP")(MotionCLIP)
 MODELS.register("TMRMotion")(ActorAgnosticEncoder)
+
+# evaluation models (reference: models/motion_representation.py)
+EVAL_MODELS.register("VAESKConv")(VAESKConv)
+EVAL_MODELS.register("VQVAEConvZero")(VQVAEConvZero)
 
 # trainers (reference: args.trainer -> <name>_trainer.py)
 TRAINERS.register("diffusion_rvqvae")(DiffusionTrainer)

@@ -4,6 +4,7 @@ Counterpart of ``syntalker_tpu/data/cache.py``, array for array:
 
 - ``preprocess_clip`` turns one BEAT2 clip into aligned per-frame arrays
   (poses, root-zeroed translation and its velocity, betas, expressions,
+  foot contacts and the 623-d h3d features when given an SMPL-X model,
   onset+amplitude audio, word ids, emotion, semantic scores);
 - ``BeatCache`` keeps one compressed ``.npz`` per clip and a window index
   (``index.json``); windows are views computed at read time;
@@ -31,9 +32,11 @@ import numpy as np
 import torch
 
 from syntalker_tpu_torch.data import audio as A
+from syntalker_tpu_torch.data.h3d import h3d_features_from_pose
 from syntalker_tpu_torch.data.textgrid import words_tier
 from syntalker_tpu_torch.data.vocab import Vocab, words_to_frame_ids
-from syntalker_tpu_torch.device import resolve_device
+from syntalker_tpu_torch.device import full_f32, resolve_device
+from syntalker_tpu_torch.ops.smplx import foot_contacts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,9 +128,11 @@ def preprocess_clip(
     sem_path: Optional[str | Path] = None,
 ) -> Dict[str, np.ndarray]:
     """One BEAT2 clip -> aligned per-frame arrays (cache_generation
-    semantics, beat_sep_lower.py:224-617). Without an SMPL-X model the
-    contacts are zeros and no ``h3d`` array is made, as in JAX's package;
-    a given model raises until the port has SMPL-X forward kinematics."""
+    semantics, beat_sep_lower.py:224-617). With an SMPL-X model
+    (:mod:`~syntalker_tpu_torch.ops.smplx`, on its device, in full f32) the
+    foot contacts come from its FK and the 623-d ``h3d`` array is made;
+    without one the contacts are zeros and there is no ``h3d``, as in JAX's
+    package."""
     data = np.load(pose_npz, allow_pickle=True)
     poses = np.asarray(data["poses"], np.float32)  # (N, 165)
     n = poses.shape[0]
@@ -135,11 +140,17 @@ def preprocess_clip(
     betas = np.asarray(data["betas"], np.float32).reshape(-1)[:300]
     facial = np.asarray(data["expressions"], np.float32)[:, : cfg.facial_dims]
 
-    if smplx_model is not None:
-        raise NotImplementedError(
-            "foot contacts and the 623-d h3d arrays need SMPL-X forward kinematics (ops/smplx.py), which the "
-            "port's evaluation slice brings; build the cache with smplx_model=None (zero contacts, no h3d)")
     contacts = np.zeros((n, 4), np.float32)
+    h3d = None
+    if smplx_model is not None:
+        dev = smplx_model.device
+        pose_t, trans_t, betas_t = (torch.as_tensor(a, device=dev) for a in (poses, trans, betas))
+        with full_f32():
+            contacts_t = foot_contacts(smplx_model, pose_t, betas_t[None].expand(n, -1), trans_t,
+                                       torch.as_tensor(facial, device=dev) if facial.shape[1] == 100 else None)
+            # the 623-d HumanML3D representation of the text-control (h3d) stack
+            h3d = h3d_features_from_pose(pose_t, betas_t, trans_t, smplx_model, contacts_t).cpu().numpy()
+        contacts = contacts_t.cpu().numpy()
 
     out: Dict[str, np.ndarray] = {
         "poses": poses,
@@ -149,6 +160,8 @@ def preprocess_clip(
         "facial": facial,
         "contacts": contacts.astype(np.float32),
     }
+    if h3d is not None:
+        out["h3d"] = h3d.astype(np.float32)
 
     if wav_path is not None:
         y, sr = A.load_wav_mono(wav_path, cfg.audio_sr)

@@ -21,6 +21,7 @@ UPPER_JOINTS = (3, 6, 9, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21)
 HANDS_JOINTS = tuple(range(25, 55))
 LOWER_JOINTS = (0, 1, 2, 4, 5, 7, 8, 10, 11)
 FACE_JOINTS = (22,)  # jaw; eyes (23, 24) are never modeled
+BEAT_ALIGN_UPPER_JOINTS = UPPER_JOINTS  # the joints BeatAlign scores
 
 UPPER_JOINT_COUNT = len(UPPER_JOINTS)  # 13
 HANDS_JOINT_COUNT = len(HANDS_JOINTS)  # 30

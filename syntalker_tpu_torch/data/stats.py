@@ -7,8 +7,9 @@ stats; ``H3DStats`` of the 623-dim representation; loaders for the shipped
 such files (``compute_pose_stats``, ``compute_h3d_stats``). The arrays stay
 numpy; the normalizers and denormalizers accept torch tensors and move the
 stats to their device (``H3DStats`` also numpy arrays). The per-joint mean
-velocity of BeatAlign needs SMPL-X forward kinematics and waits for the
-evaluation slice.
+speed that normalizes BeatAlign (``compute_mean_joint_velocity``) comes
+from joints that the port's SMPL-X forward kinematics computes over cached
+clips (``compute_mean_velocity_from_clips``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import numpy as np
 import torch
 
 from syntalker_tpu_torch.data import joints as J
+from syntalker_tpu_torch.device import full_f32
+from syntalker_tpu_torch.ops.smplx import forward_joints
 
 _PART_IDX = {"upper": J.UPPER_6D_IDX, "hands": J.HANDS_6D_IDX, "lower": J.LOWER_6D_IDX}
 
@@ -121,3 +124,43 @@ def compute_h3d_stats(h3d_feats: np.ndarray) -> H3DStats:
     """Dataset mean/std of the 623-d representation, std floored at 1e-6."""
     flat = h3d_feats.reshape(-1, 623)
     return H3DStats(mean=flat.mean(0).astype(np.float32), std=np.maximum(flat.std(0), 1e-6).astype(np.float32))
+
+
+def compute_mean_joint_velocity(joints_per_clip: list[np.ndarray], fps: int = 30) -> np.ndarray:
+    """Per-joint mean speed (55,) over a dataset, the reference's
+    ``weights/mean_vel_smplxflame_30.npy``: forward difference at the first
+    frame, central differences inside, backward at the last, so that every
+    frame gives one speed sample."""
+    sums = np.zeros(55)
+    count = 0
+    for joints in joints_per_clip:  # (T, 55, 3)
+        dt = 1.0 / fps
+        init = (joints[1:2] - joints[0:1]) / dt
+        mid = (joints[2:] - joints[:-2]) / (2 * dt)
+        fin = (joints[-1:] - joints[-2:-1]) / dt
+        speed = np.linalg.norm(np.concatenate([init, mid, fin], axis=0), axis=2)
+        sums += speed.sum(0)
+        count += speed.shape[0]
+    return (sums / max(count, 1)).astype(np.float32)
+
+
+@torch.no_grad()
+def compute_mean_velocity_from_clips(clips: list[dict], smplx_model, fps: int = 30, chunk: int = 512) -> np.ndarray:
+    """The (55,) mean joint speed of cached clips (their poses, betas,
+    translations and, when 100-wide, expressions) through the SMPL-X joint
+    FK on the model's device in full f32, ``chunk`` frames at a time."""
+    dev = smplx_model.device
+    joints_per_clip = []
+    for c in clips:
+        poses = torch.as_tensor(np.asarray(c["poses"], np.float32), device=dev)
+        n = poses.shape[0]
+        betas = torch.as_tensor(np.asarray(c["betas"], np.float32).reshape(1, -1), device=dev).expand(n, -1)
+        trans = torch.as_tensor(np.asarray(c["trans"], np.float32), device=dev)
+        exps = c.get("facial")
+        exps = (torch.as_tensor(np.asarray(exps, np.float32)[:, :100], device=dev)
+                if exps is not None and exps.shape[1] >= 100 else None)
+        with full_f32():
+            joints = [forward_joints(smplx_model, poses[s : s + chunk], betas[s : s + chunk], trans[s : s + chunk],
+                                     None if exps is None else exps[s : s + chunk]) for s in range(0, n, chunk)]
+        joints_per_clip.append(torch.cat(joints).cpu().numpy())
+    return compute_mean_joint_velocity(joints_per_clip, fps=fps)

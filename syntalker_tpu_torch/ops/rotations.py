@@ -5,9 +5,8 @@ Counterpart of ``syntalker_tpu/ops/rotations.py`` for the decode path and
 the training data path (``axis_angle_to_rotation_6d``): quaternions are (w,
 x, y, z) with non-negative w; ``matrix_to_rotation_6d`` takes the first two
 rows; ``rotation_6d_to_matrix`` Gram-Schmidt orthonormalizes rows; both
-axis-angle ↔ quaternion maps keep the small-angle series of sin(θ/2)/θ.
-Quaternion products and ``geodesic_distance`` wait for the evaluation
-slice.
+axis-angle ↔ quaternion maps keep the small-angle series of sin(θ/2)/θ;
+``geodesic_distance`` is the angle between two rotation matrices.
 """
 
 from __future__ import annotations
@@ -128,3 +127,11 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
 def axis_angle_to_rotation_6d(axis_angle: torch.Tensor) -> torch.Tensor:
     """(..., 3) -> (..., 6), the training data path's features."""
     return matrix_to_rotation_6d(axis_angle_to_matrix(axis_angle))
+
+
+def geodesic_distance(m1: torch.Tensor, m2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Geodesic angle between rotation matrices (..., 3, 3) -> (...), the
+    cosine clipped to [-1 + eps, 1 - eps] (the reference's GeodesicLoss)."""
+    m = m1 @ m2.transpose(-1, -2)
+    cos = (m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2] - 1.0) * 0.5
+    return torch.arccos(cos.clamp(-1.0 + eps, 1.0 - eps))

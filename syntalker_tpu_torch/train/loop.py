@@ -42,6 +42,7 @@ from syntalker_tpu_torch.config import ExperimentConfig, body_part_rvq_config
 from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.data.cache import BatchLoader, BeatCache, DatasetTooLargeError, DeviceDataset
 from syntalker_tpu_torch.data.features import pose_to_part_rot6d
+from syntalker_tpu_torch.data.h3d import H3D_PART_DIMS
 from syntalker_tpu_torch.data.stats import PoseStats, identity_pose_stats, load_pose_stats
 from syntalker_tpu_torch.data.vocab import Vocab
 from syntalker_tpu_torch.device import resolve_device
@@ -58,7 +59,6 @@ from syntalker_tpu_torch.utils.tracking import EpochTracker, StepTimer, set_rand
 
 log = logging.getLogger("syntalker")
 
-H3D_PART_DIMS = {"upper": 156, "hands": 360, "lower": 107}  # the 623-dim representation's parts
 RVQ_SEED_OFFSET = 99  # the RVQ stack's seeds, after the denoiser's
 
 
@@ -99,8 +99,8 @@ def check_supported(cfg: ExperimentConfig) -> None:
             "(ROADMAP.md, 'Multi-GPU')")
     if cfg.representation == "h3d623":
         raise NotImplementedError(
-            "representation h3d623 needs data/h3d.py and SMPL-X forward kinematics, which the port does not "
-            "have yet (ROADMAP.md, 'Training, part B')")
+            "representation h3d623: the port's trainers run the beat2 representation; the h3d623 trainers "
+            "wait for their slice (ROADMAP.md, 'Training, part B')")
 
 
 def pose_stats(cfg: ExperimentConfig, stats: Optional[PoseStats]) -> PoseStats:

@@ -22,6 +22,7 @@ from syntalker_tpu_torch.data import beat_builder as PB
 from syntalker_tpu_torch.data import cache as PC
 from syntalker_tpu_torch.data.synthetic import make_corpus
 from syntalker_tpu_torch.data.vocab import Vocab
+from syntalker_tpu_torch.ops.smplx import SMPLXModel, synthetic_smplx_model
 
 SPEAKERS = (2, 4)
 KEYS = ("pose", "trans_v", "audio", "word")
@@ -88,8 +89,12 @@ def test_preprocess_clip_is_jaxs(corpus):
     assert "h3d" not in got and not got["contacts"].any() and got["sem"].any() and (got["word"] > 3).any()
     # without wav, textgrid or vocab: no audio, zero words
     assert_samples_equal(PC.preprocess_clip(paths[0], None, None, None), JC.preprocess_clip(paths[0], None, None, None))
-    with pytest.raises(NotImplementedError, match="SMPL-X"):
-        PC.preprocess_clip(*paths, pv, smplx_model=object())
+    # with an SMPL-X model: FK contacts and the 623-d h3d array (held to JAX in test_torch_smplx.py)
+    with_model = PC.preprocess_clip(*paths, pv, smplx_model=synthetic_smplx_model(device="cpu"),
+                                    sem_path=root / "sem" / f"{clip}.txt")
+    assert with_model["h3d"].shape == (got["poses"].shape[0], 623) and with_model["contacts"].shape[1] == 4
+    assert_samples_equal({k: v for k, v in with_model.items() if k not in ("contacts", "h3d")},
+                         {k: v for k, v in got.items() if k != "contacts"})
 
 
 def test_read_split_is_jaxs(corpus):
@@ -190,7 +195,14 @@ def test_vocab_embedding_round_trip(tmp_path):
 def test_load_smplx_if_available(tmp_path):
     assert load_smplx_if_available(load_config(None, ["data.smplx_model_path="])) is None
     assert load_smplx_if_available(load_config(None, [f"data.smplx_model_path={tmp_path / 'none.npz'}"])) is None
-    (tmp_path / "m.npz").write_bytes(b"")
-    for path in ("synthetic", str(tmp_path / "m.npz")):
-        with pytest.raises(NotImplementedError, match="ops/smplx.py"):
-            load_smplx_if_available(load_config(None, [f"data.smplx_model_path={path}"]))
+    synthetic = load_smplx_if_available(load_config(None, ["data.smplx_model_path=synthetic"]), "cpu")
+    assert isinstance(synthetic, SMPLXModel) and synthetic.v_template.shape == (55 * 4, 3)
+    m = synthetic_smplx_model(device="cpu")
+    v = m.v_template.shape[0]
+    np.savez(tmp_path / "m.npz", v_template=m.v_template.numpy(), shapedirs=m.shapedirs.numpy(),
+             posedirs=m.posedirs.numpy().T.reshape(v, 3, -1), J_regressor=m.j_regressor.numpy(),
+             weights=m.lbs_weights.numpy(), kintree_table=np.stack([m.parents, np.arange(55)]))
+    loaded = load_smplx_if_available(load_config(None, [f"data.smplx_model_path={tmp_path / 'm.npz'}"]), "cpu")
+    for name in ("v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights"):
+        assert torch.equal(getattr(loaded, name), getattr(m, name)), name
+    np.testing.assert_array_equal(loaded.parents, m.parents)

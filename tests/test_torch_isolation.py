@@ -1,12 +1,13 @@
 """The port stands alone: importing ``syntalker_tpu_torch`` (every
-submodule, the train steps, optimizers, trainers, data path, registries
-and train CLIs included) and ``chip_smoke.py`` pulls in neither JAX, flax,
-optax, orbax nor the JAX package, nor does running the train CLIs'
-``--help``; entry points refuse to fall back to the CPU silently, and the
+submodule, the train steps, optimizers, trainers, data path, registries,
+the evaluation slice and the train and evaluation CLIs included) and
+``chip_smoke.py`` pulls in neither JAX, flax, optax, orbax nor the JAX
+package, nor does running those CLIs' ``--help``; entry points refuse to fall back to the CPU silently, and the
 ctypes signatures agree with the C entry points of the CUDA sources."""
 
 import ast
 import ctypes
+import json
 import os
 import re
 import subprocess
@@ -41,6 +42,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke
 print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in {forbidden})))
+print(json.dumps(sorted(sys.modules)))
 """
 
 
@@ -63,7 +65,14 @@ def test_data_and_loop_modules_are_walked():
         assert (PKG / rel).exists(), rel
 
 
-@pytest.mark.parametrize("cli", ("train", "train_rvq"))
+def test_evaluation_modules_are_walked():
+    """The evaluation slice's modules are among those the probe imports."""
+    for rel in ("ops/smplx.py", "data/h3d.py", "models/skeleton.py", "models/eval_vae.py", "eval/metrics.py",
+                "eval/harness.py", "train/ae_trainer.py", "cli/test.py", "cli/train_aux.py"):
+        assert (PKG / rel).exists(), rel
+
+
+@pytest.mark.parametrize("cli", ("train", "train_rvq", "test", "train_aux"))
 def test_train_cli_help_pulls_in_no_jax(cli):
     code = ("import json, runpy, sys\n"
             f"sys.argv = ['{cli}', '--help']\n"
@@ -84,7 +93,12 @@ def test_import_pulls_in_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    forbidden, imported = out.stdout.strip().splitlines()[-2:]
+    assert forbidden == "[]"
+    walked = set(json.loads(imported))
+    for name in ("ops.smplx", "data.h3d", "models.skeleton", "models.eval_vae", "eval.metrics", "eval.harness",
+                 "train.ae_trainer", "cli.test", "cli.train_aux"):
+        assert f"syntalker_tpu_torch.{name}" in walked, name
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"], ids=lambda p: p.name)

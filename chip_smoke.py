@@ -56,9 +56,20 @@ batch, the synthetic SMPL-X model; exact K2 and K3 counts, every K3 call
 against the plain version, the metrics' ranges and the time split), the
 mean joint velocity against the CPU's, one bucket on the plain f32
 sampler, one clip under the yaml's DDPM-1000, FGD's embedding on the card
-against the CPU, and face LBS at 10,450 vertices. Takes about seven
-minutes on an H100, the ~10 s build included (``train_loop`` with
-``evaluate`` about three and a half).
+against the CPU, and face LBS at 10,450 vertices. ``h3d`` (last) runs
+the text-control stack: a synthetic corpus whose caches carry the 623-d
+``h3d`` arrays (the synthetic SMPL-X model on the card), the three h3d623
+RVQ-VAEs through ``cli.train_rvq.main()`` (300 iterations each at batch
+256), the ``configs/diffusion_h3d.yaml`` denoiser through
+``DiffusionTrainer`` with the frozen TMR motion encoder of
+``weights/t2m_oracle/tmr.npz`` as its prompt channel (2 epochs), then
+``cli.test_h3d.main()`` on the test split (the committed BiGRU oracle and
+TMR text head, DDIM-50, 3 replications, 2 steering clips): exact K2 and
+K3 counts against the window plans, K2 at the guided step's three
+branches and every K3 call against their plain versions, the oracle on
+the card against the CPU, finite metrics. Takes about eight minutes on an
+H100, the ~10 s build included (``train_loop`` with ``evaluate`` about
+three and a half, ``h3d`` about one and a half).
 Prints one JSON line per phase, then the ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
@@ -87,6 +98,7 @@ from syntalker_tpu_torch import generation as G
 from syntalker_tpu_torch import native
 from syntalker_tpu_torch.cli import generate as GEN
 from syntalker_tpu_torch.cli import test as TEST
+from syntalker_tpu_torch.cli import test_h3d as TEST_H3D
 from syntalker_tpu_torch.cli import train as TRAIN
 from syntalker_tpu_torch.cli import train_aux as TRAIN_AUX
 from syntalker_tpu_torch.cli import train_rvq as TRAIN_RVQ
@@ -103,7 +115,7 @@ from syntalker_tpu_torch.device import full_f32
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.eval.metrics import frechet_distance
 from syntalker_tpu_torch.models.denoiser import Conditioning, MDMConfig, build_mdm
-from syntalker_tpu_torch.models.tmr import TextPipeline, embed_prompts
+from syntalker_tpu_torch.models.tmr import TextPipeline, embed_prompts, load_tmr_motion
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae, draw_rvqvae
 from syntalker_tpu_torch.ops import _build, mdm_cuda, quantize_cuda
 from syntalker_tpu_torch.ops import smplx as SMPLX
@@ -113,7 +125,7 @@ from syntalker_tpu_torch.streaming import StreamingMotionSession
 from syntalker_tpu_torch.train import optim
 from syntalker_tpu_torch.train.diffusion_trainer import (DiffusionTrainConfig, draw_diffusion, make_diffusion_train_step,
                                                          make_latent_encoder)
-from syntalker_tpu_torch.train.loop import rvq_config
+from syntalker_tpu_torch.train.loop import DiffusionTrainer, rvq_config
 from syntalker_tpu_torch.train.rvq_trainer import RVQLossConfig, make_rvq_train_step, rvq_loss
 from syntalker_tpu_torch.data.synthetic import make_corpus
 from syntalker_tpu_torch.train.state import (TrainState, create_train_state, latest_checkpoint, load_checkpoint,
@@ -2109,6 +2121,199 @@ def phase_train_loop(rvq_iters: int = LOOP_RVQ_ITERS, rvq_overrides=(), mdm_over
     return out
 
 
+# ---------------------------------------------------------------------------
+# h3d phase: the text-control stack (h3d623 trainers, the TMR prompt channel, test_h3d with the BiGRU oracle)
+# ---------------------------------------------------------------------------
+
+H3D_CLIPS, H3D_SECONDS = 4, (12.0, 24.0)  # clips a speaker of LOOP_SPEAKERS: 16 clips, a quarter of them the test split
+H3D_RVQ_ITERS = 300  # a part's iterations at batch 256 (configs/rvq_beat2.yaml: 300,000)
+H3D_MDM_EPOCHS = 2
+H3D_REPLICATIONS, H3D_STEERING_CLIPS = 3, 2  # cli.test_h3d's defaults: 20 replications, 4 steering clips
+ORACLE_REL = 1e-5  # the BiGRU oracle in full f32 on the card and on the CPU, sums in another order
+TMR_NPZ = Path(__file__).resolve().parent / "weights" / "t2m_oracle" / "tmr.npz"
+
+
+def h3d_overrides(d: Path) -> list:
+    return [*loop_overrides(d), "representation=h3d623", "data.smplx_model_path=synthetic"]
+
+
+def build_h3d_caches(d: Path) -> dict:
+    """The corpus and the train caches of the h3d trainers, built with the
+    synthetic SMPL-X model on the card so that every window carries its
+    623-d ``h3d`` array (the CLIs then find them: a cache hit)."""
+    t0 = time.perf_counter()
+    ids = make_corpus(d / "corpus", speakers=LOOP_SPEAKERS, clips_per_speaker=H3D_CLIPS, seconds_range=H3D_SECONDS,
+                      seed=1)
+    out = {"clips": len(ids), "speakers": list(LOOP_SPEAKERS), "seconds_range": list(H3D_SECONDS),
+           "corpus_s": time.perf_counter() - t0}
+    smplx = SMPLX.synthetic_smplx_model(device=DEV)
+    for name, cache_dir, length in (("rvq", d / "cache_rvq", load_config(RVQ_CONFIG).rvq_train.window),
+                                    ("mdm", d / "cache", load_config(H3D_CONFIG).data.pose_length)):
+        t0 = time.perf_counter()
+        cache, vocab = build_beat_cache(d / "corpus", cache_dir, speakers=LOOP_SPEAKERS, smplx_model=smplx,
+                                        cfg=ClipConfig(pose_length=length, stride=20))
+        assert cache.get(0)["h3d"].shape == (length, 623)
+        out[name] = {"window": length, "stride": 20, "windows": len(cache), "cache_mb": cache_bytes(cache_dir) / 2**20,
+                     "build_s": time.perf_counter() - t0, "vocab_words": vocab.n_words}
+    return out
+
+
+def h3d_mdm(d: Path, rvq_paths: list, overrides=()) -> tuple:
+    """The ``configs/diffusion_h3d.yaml`` denoiser through ``DiffusionTrainer``
+    with the frozen TMR motion encoder of ``weights/t2m_oracle/tmr.npz`` as
+    its prompt channel, for H3D_MDM_EPOCHS epochs; (phase dict, checkpoint)."""
+    cfg = load_config(H3D_CONFIG, [*h3d_overrides(d), f"rvq_ckpts=[{','.join(map(str, rvq_paths))}]",
+                                   f"train.epochs={H3D_MDM_EPOCHS}", "train.log_period=1", "train.device_data=true",
+                                   *overrides])
+    cache = BeatCache.open(d / "cache" / "train")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = DiffusionTrainer(cfg, cache, tmr_motion=load_tmr_motion(TMR_NPZ, device=DEV), device=DEV)
+    for epoch in range(H3D_MDM_EPOCHS):
+        trainer.train_epoch(epoch)
+    path = trainer.save()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ds = trainer.device_dataset()
+    assert set(ds.arrays) == {"h3d", "audio", "word"} and ds.arrays["h3d"].device.type == DEV.type, list(ds.arrays)
+    steps = H3D_MDM_EPOCHS * len(ds)
+    assert path.name == f"step_{steps}.npz", (path, steps)
+    batch = ds.batch(next(iter(ds.epoch_indices(0))))
+    prompt = trainer.featurize(batch)["prompt"]
+    assert prompt.shape == (batch["h3d"].shape[0], cfg.mdm.prompt_dim) and torch.isfinite(prompt).all()
+    losses = [h["loss"] for h in trainer.history]
+    assert np.isfinite(losses).all()
+    out = {"config": H3D_CONFIG, "epochs": H3D_MDM_EPOCHS, "steps": steps, "batch": trainer.loader.batch_size,
+           "windows": ds.n, "dataset_gb": ds.nbytes / 1e9, "prompt_channel": "TMR motion mu (weights/t2m_oracle/tmr.npz)",
+           "wall_s": wall_s, "loss_first": losses[0], "loss_last": losses[-1], **trainer_timing(trainer)}
+    return out, path
+
+
+@contextlib.contextmanager
+def recorded_k2(batch: int):
+    """The input of the first K2 call at ``batch`` samples made inside, kept
+    with its weights for a comparison with the plain version after the run."""
+    seen, fused = [], mdm_cuda.block_stack
+
+    def record(x, w, *, num_heads):
+        if not seen and x.shape[0] == batch:
+            seen.append((x.clone(), w, num_heads))
+        return fused(x, w, num_heads=num_heads)
+
+    mdm_cuda.block_stack = record
+    try:
+        yield seen
+    finally:
+        mdm_cuda.block_stack = fused
+
+
+def oracle_card_vs_cpu(cache, n_clips: int) -> dict:
+    """The committed oracle's motion and text embeddings of the test clips'
+    ground truth on the card against the same on the CPU."""
+    card, cpu = TEST_H3D.t2m.T2MEvaluator.from_artifact(device=DEV), TEST_H3D.t2m.T2MEvaluator.from_artifact(
+        device="cpu")
+    feats = [cache.get(i)["h3d"] for i in range(n_clips)]
+    n = min(f.shape[0] for f in feats)
+    motion, lens = np.stack([f[:n] for f in feats]), np.asarray([n - 3 * i for i in range(n_clips)])
+    text, _ = TEST_H3D.caption_features(cache, n_clips)
+    we, po, ln = (np.concatenate([t[k] for t in text]) for k in ("word_embs", "pos_ohot", "cap_lens"))
+    t0 = time.perf_counter()
+    m_card = card.get_motion_embeddings(motion, lens)
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    t_card = card.text_embeddings(we, po, ln).cpu().numpy()
+    m_cpu, t_cpu = cpu.get_motion_embeddings(motion, lens), cpu.text_embeddings(we, po, ln).numpy()
+    out = {"clips": n_clips, "frames": n, "motion_rel_err": rel_err(torch.as_tensor(m_card), torch.as_tensor(m_cpu)),
+           "text_rel_err": rel_err(torch.as_tensor(t_card), torch.as_tensor(t_cpu)), "card_motion_ms": card_ms,
+           "tol": ORACLE_REL}
+    assert out["motion_rel_err"] <= ORACLE_REL and out["text_rel_err"] <= ORACLE_REL, out
+    return out
+
+
+def phase_h3d(rvq_iters: int = H3D_RVQ_ITERS, rvq_overrides=(), mdm_overrides=()) -> dict:
+    """The text-control stack on the card at the shipped widths, cut in data
+    and iterations: a synthetic corpus with its h3d arrays; the three h3d623
+    RVQ-VAEs through ``cli.train_rvq`` (``configs/rvq_beat2.yaml``'s widths,
+    batch 256, ``rvq_iters`` each); the ``configs/diffusion_h3d.yaml``
+    denoiser through ``DiffusionTrainer`` with the TMR prompt channel;
+    then ``cli.test_h3d`` on the test split (the committed BiGRU oracle and
+    TMR text head, DDIM-50, H3D_REPLICATIONS replications, H3D_STEERING_CLIPS
+    steering clips): exact K2 and K3 counts against the window plans, K2
+    (recorded at the guided step's three branches) and every K3 call against
+    their plain versions, the oracle on the card against the CPU, and finite
+    metrics."""
+    out = {"phase": "h3d", "card": card_name_and_power_limit()}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        out["data"] = build_h3d_caches(d)
+        paths = []
+        for part in ("upper", "hands", "lower"):
+            res, path = loop_rvq(part, d, rvq_iters, ["representation=h3d623", "data.smplx_model_path=synthetic",
+                                                      *rvq_overrides])
+            out[f"rvq_{part}"] = {k: res[k] for k in ("iters", "batch", "windows", "wall_s_to_trained", "first_log",
+                                                      "last_log", "loop_ms_per_step", "cuda_event_warm_step_ms",
+                                                      "profile")}
+            paths.append(path)
+        emit({"phase": "h3d", "card": out["card"], "data": out["data"],
+              **{f"rvq_{p}": out[f"rvq_{p}"] for p in ("upper", "hands", "lower")}})
+        out["diffusion"], mdm_path = h3d_mdm(d, paths, mdm_overrides)
+        emit({"phase": "h3d", "card": out["card"], "model": "h3d denoiser", **out["diffusion"]})
+
+        argv = ["-c", H3D_CONFIG, "--run-dir", str(d / "run_h3d"), *h3d_overrides(d),
+                f"rvq_ckpts=[{','.join(map(str, paths))}]", f"test_ckpt={mdm_path}", f"train.ckpt_dir={d / 'h3d_eval'}",
+                *mdm_overrides, "--replications", str(H3D_REPLICATIONS), "--steering-clips", str(H3D_STEERING_CLIPS)]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_k3() as k3_calls, recorded_k2(3) as k2_calls:
+            metrics = TEST_H3D.main(argv)
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {**mdm_cuda.launches, **quantize_cuda.launches}
+
+        cfg = load_config(H3D_CONFIG, [*h3d_overrides(d), *mdm_overrides])
+        cache = BeatCache.open(d / "cache" / "test")
+        windows = [G.plan_windows(cache.get(i)["pose"].shape[0], pose_length=cfg.data.pose_length,
+                                  pre_frames=cfg.pre_frames).num_windows for i in range(len(cache))]
+        steer = min(H3D_STEERING_CLIPS, len(cache))
+        steps = make_diffusion(schedule=cfg.diffusion.schedule, steps=cfg.diffusion.steps,
+                               timestep_respacing=cfg.diffusion.timestep_respacing or None).num_steps
+        generations = H3D_REPLICATIONS * len(cache) + 2 * steer
+        passes = steps * (H3D_REPLICATIONS * sum(windows) + 2 * sum(windows[:steer]))
+        # one more pass the first time each batch size runs (1 unprompted, 3 guided branches), before its graph
+        want = {"ddim_window": 0, "rvq_encode": 3 * generations,
+                "block_stack": (passes + 2) * mdm_cuda.block_launches(cfg.mdm.num_layers)}
+        assert counts == want, (counts, want)
+        k3 = k3_calls_check(k3_calls)
+        (x, w, heads), = k2_calls
+        k2_err = rel_err(mdm_cuda.block_stack(x, w, num_heads=heads), mdm_cuda.block_stack_plain(x, w, num_heads=heads))
+        assert k2_err <= K2_REL, k2_err
+
+        keys = ["fid", "diversity", "matching"] + [f"r_precision_top{k}" for k in range(1, min(3, len(cache)) + 1)]
+        assert set(keys) <= set(metrics), sorted(metrics)
+        scores = {k: metrics[k] for k in keys}
+        steering = {k: metrics[k] for k in ("steering_prompt_gain", "steering_prompted_part_rel_change",
+                                            "steering_offpart_leakage", "steering_clips", "steering_part")}
+        assert np.isfinite([v["mean"] for v in scores.values()]).all(), scores
+        assert np.isfinite([steering[k] for k in list(steering)[:3]]).all(), steering
+        out.update({
+            "cuts": [f"synthetic corpus (speakers {list(LOOP_SPEAKERS)}, {out['data']['clips']} clips of "
+                     f"{H3D_SECONDS[0]:g}-{H3D_SECONDS[1]:g} s)", "synthetic SMPL-X model", "identity h3d statistics",
+                     f"RVQ-VAEs {rvq_iters} iterations a part", f"denoiser {H3D_MDM_EPOCHS} epochs",
+                     f"{H3D_REPLICATIONS} replications (20)", f"{H3D_STEERING_CLIPS} steering clips (4)"],
+            "test_h3d": {"clips": len(cache), "windows": windows, "steps": steps, "generations": generations,
+                         "wall_s": wall_s, "ms_per_generation": 1e3 * wall_s / generations, "metrics": scores,
+                         "steering": steering, "launches": counts,
+                         "rvq_kernels": counts["rvq_encode"] * quantize_cuda.rvq_kernel_launches(6), "k3_vs_plain": k3,
+                         "k2_vs_plain": {"samples": x.shape[0], "rows": x.shape[0] * x.shape[1], "rel_err": k2_err,
+                                         "tol": K2_REL}},
+            "oracle_card_vs_cpu": oracle_card_vs_cpu(cache, len(cache)),
+        })
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({k: v for k, v in out.items() if k not in ("data",) and not k.startswith("rvq_") and k != "diffusion"})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2145,6 +2350,8 @@ def main() -> int:
            "beat2": phase_generate("beat2", BEAT2_CONFIG, ["diffusion.timestep_respacing=ddim50", "rvq_ckpts=[]"], {})}
     gen["trained"] = phase_train()["generate"]
     loop = phase_train_loop()
+    h3d_launches = phase_h3d()["test_h3d"]
+    h3d_launches = {**h3d_launches["launches"], "rvq_encode": h3d_launches["rvq_kernels"]}
     gen["trained_loop"] = loop["generate"]
     trained_stream_launches = loop["faults"]["stream"]["launches"]
     trained_stream_launches["rvq_kernels"] = loop["faults"]["stream"]["rvq_kernels"]
@@ -2174,7 +2381,7 @@ def main() -> int:
          "generate_launches": {k: (v["launches"][name] if name != "rvq_encode" else v["rvq_kernels"])
                                for k, v in gen.items()},
          "trained_stream_launches": trained_stream_launches[name if name != "rvq_encode" else "rvq_kernels"],
-         "evaluate_launches": evaluate_launches[name],
+         "evaluate_launches": evaluate_launches[name], "h3d_eval_launches": h3d_launches[name],
          "error_vs_tol": err}
         for name, source, replaces, r, launches, prompted, streamed, encoded, err in rows
     ]})

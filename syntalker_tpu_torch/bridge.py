@@ -20,7 +20,10 @@ in both directions:
 - ``word_embedding``, ``uncond_prompt_embedding``, the TMR ``dist_tokens``,
   the MotionCLIP decoder's ``time_queries``, the RVQ codebooks (Q, K, D),
   the face VQ-VAE's codebook and the skeleton convs' (k, in, out) kernels
-  are carried as they are.
+  are carried as they are;
+- the t2m oracle's GRU cells keep flax's per-gate Dense layers
+  (``gru/GRUCell_i/{ir,iz,in,hr,hz,hn}``), so they map as any Dense does
+  (:func:`load_t2m_oracle`, :func:`t2m_oracle_to_flax`).
 
 An MDM is loaded from its flax variables: ``{'params': ..., 'batch_stats':
 ...}`` as ``create_mdm`` returns them for ``audio_norm='batch'``, or the bare
@@ -303,6 +306,20 @@ def _field(node, key):
     if isinstance(node, Mapping):
         return node.get(str(key), {})
     return node[key] if isinstance(key, int) else getattr(node, key)
+
+
+def load_t2m_oracle(evaluator, params: Mapping):
+    """A flax oracle tree ``{"motion": ..., "text": ...}`` into a
+    ``T2MEvaluator``'s two towers."""
+    for name, tower in (("motion", evaluator.motion_enc), ("text", evaluator.text_enc)):
+        FlaxLayout(tower).load(tower, params[name])
+    return evaluator
+
+
+def t2m_oracle_to_flax(evaluator) -> dict:
+    """A ``T2MEvaluator``'s two towers as the flax oracle tree."""
+    return {name: FlaxLayout(tower).to_flax(dict(tower.named_parameters()))
+            for name, tower in (("motion", evaluator.motion_enc), ("text", evaluator.text_enc))}
 
 
 def optax_state_from_flax(jax_state, template, layout: FlaxLayout):

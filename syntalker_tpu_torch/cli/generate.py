@@ -15,7 +15,7 @@ latents snapped (K3) and decoded; an SMPL-X npz written with the JAX CLI's
 keys. Runs on CUDA unless ``--device cpu``. JAX's threefry noise has no
 PyTorch counterpart: the initial noise comes from a ``torch.Generator``
 seeded with ``train.seed``. Rendering (``--render``) waits for the port of
-``render.py`` and ``ops/smplx.py``.
+``render.py``.
 """
 
 from __future__ import annotations
@@ -148,7 +148,7 @@ def main(argv=None):
     p.add_argument("--device", type=str, default=None, help="cuda (the default) or cpu")
     args = p.parse_args(argv)
     if args.render:
-        p.error("--render waits for the port of render.py and ops/smplx.py")
+        p.error("--render waits for the port of render.py")
     cfg = setup(args)
 
     result = generate_clip(

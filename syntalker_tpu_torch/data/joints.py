@@ -15,6 +15,25 @@ import numpy as np
 
 NUM_JOINTS = 55
 AXIS_ANGLE_DIM = NUM_JOINTS * 3  # 165
+
+JOINT_NAMES = (
+    "pelvis", "left_hip", "right_hip", "spine1", "left_knee", "right_knee",
+    "spine2", "left_ankle", "right_ankle", "spine3", "left_foot", "right_foot",
+    "neck", "left_collar", "right_collar", "head", "left_shoulder",
+    "right_shoulder", "left_elbow", "right_elbow", "left_wrist", "right_wrist",
+    "jaw", "left_eye_smplhf", "right_eye_smplhf",
+    "left_index1", "left_index2", "left_index3",
+    "left_middle1", "left_middle2", "left_middle3",
+    "left_pinky1", "left_pinky2", "left_pinky3",
+    "left_ring1", "left_ring2", "left_ring3",
+    "left_thumb1", "left_thumb2", "left_thumb3",
+    "right_index1", "right_index2", "right_index3",
+    "right_middle1", "right_middle2", "right_middle3",
+    "right_pinky1", "right_pinky2", "right_pinky3",
+    "right_ring1", "right_ring2", "right_ring3",
+    "right_thumb1", "right_thumb2", "right_thumb3",
+)
+assert len(JOINT_NAMES) == NUM_JOINTS
 ROT6D_DIM = NUM_JOINTS * 6  # 330
 
 UPPER_JOINTS = (3, 6, 9, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21)

@@ -5,7 +5,9 @@ Counterpart of ``syntalker_tpu/generation.py``. A clip is cut into
 frames and sampled; the windows are stitched (first whole, later ones minus
 the seed overlap), scaled, snapped and decoded per body part, denormalized,
 the lower-body translation velocity integrated, and everything scattered
-back to 165-dof axis-angle.
+back to 165-dof axis-angle; on the text-control (h3d623) representation,
+:func:`decode_latents_h3d` scatters the parts into 623-d features and
+recovers the joints.
 
 Samplers:
 
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from syntalker_tpu_torch.data import joints as J
+from syntalker_tpu_torch.data.h3d import H3D_DIM, part_mask_623, recover_from_ric
 from syntalker_tpu_torch.diffusion.cfg import make_bodypart_cfg_model_fn
 from syntalker_tpu_torch.diffusion.core import sample
 from syntalker_tpu_torch.models.denoiser import MDM, Conditioning, apply_rope, rope_angles
@@ -309,6 +312,27 @@ def decode_latents(latents, *, rvq_modules: dict, stats, latent_scale: float = 5
         module, state = rvq_modules[name]
         parts[name] = module.latent2origin(z[..., lo:hi].contiguous(), state)
     return decode_parts(parts, stats=stats, use_trans=use_trans)
+
+
+@torch.no_grad()
+def decode_latents_h3d(latents, *, rvq_modules: dict, h3d_stats, latent_scale: float = 5.0):
+    """Latents (B, T_lat, 1536) in model space -> 623-d HumanML3D features
+    and global joints (the text-control test path,
+    h3d_diffusion_new_trainer.py:561-607): each part snapped and decoded
+    (``RVQVAE.latent2origin``: K3 on the card), scattered through its
+    ``part_mask_623``, denormalized by ``h3d_stats``, then
+    ``recover_from_ric``. Returns ``{"features": (B, T, 623), "joints":
+    (B, T, 52, 3)}``."""
+    z = latents * latent_scale
+    feats = None
+    for name, (lo, hi) in J.LATENT_SLICES.items():
+        module, state = rvq_modules[name]
+        part = module.latent2origin(z[..., lo:hi].contiguous(), state)
+        if feats is None:
+            feats = part.new_zeros(z.shape[0], part.shape[1], H3D_DIM)
+        feats[..., torch.as_tensor(part_mask_623(name), device=part.device).long()] = part
+    feats = h3d_stats.denormalize(feats)
+    return {"features": feats, "joints": recover_from_ric(feats)}
 
 
 def decode_parts(parts: Dict[str, torch.Tensor], *, stats, use_trans: bool = True):

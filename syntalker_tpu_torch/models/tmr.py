@@ -11,7 +11,9 @@ Counterpart of the inference half of ``syntalker_tpu/models/tmr.py``:
   token hidden states, then an :class:`ActorAgnosticEncoder`;
 - :class:`TextPipeline` — prompt strings -> align-space means through the
   hash-word embedding (:func:`~syntalker_tpu_torch.data.captions.hash_word_vector`);
-- :func:`embed_prompts`, :func:`load_tmr_artifact`, :func:`load_text_pipeline`;
+- :func:`embed_prompts`, :func:`load_tmr_artifact`, :func:`load_text_pipeline`,
+  :func:`load_tmr_motion` (the frozen motion side, the h3d denoiser's
+  train-time prompt channel);
 - the contrastive alignment training: :func:`info_nce` and
   :func:`make_tmr_train_step`.
 
@@ -256,6 +258,16 @@ def load_text_pipeline(path, *, backbone_path: str = "", device=None) -> TextPip
     """A :class:`TextPipeline` with the trained text head of a TMR artifact."""
     cfg, params = load_tmr_artifact(path)
     return TextPipeline(cfg, backbone_path=backbone_path, head_params=params["text"], device=device)
+
+
+def load_tmr_motion(path, *, device=None) -> ActorAgnosticEncoder:
+    """The frozen motion encoder of a TMR artifact, in eval mode on
+    ``device`` (CUDA unless ``device="cpu"``)."""
+    from syntalker_tpu_torch import bridge
+
+    cfg, params = load_tmr_artifact(path)
+    enc = bridge.load_actor_encoder(ActorAgnosticEncoder(cfg, cfg.motion_feats), params["motion"])
+    return enc.to(resolve_device(device)).eval().requires_grad_(False)
 
 
 

@@ -11,10 +11,15 @@ rot6d) representation on one device:
 - ``RVQTrainer`` trains one body part's RVQ-VAE for a number of
   iterations, ``DiffusionTrainer`` the denoiser epoch by epoch on latents
   of the frozen RVQ-VAE encoders. Each step featurizes the batch on the
-  device (``pose_to_part_rot6d``, the pose statistics, the lower part's
-  translation velocity) and runs the train step of
+  device and runs the train step of
   :mod:`~syntalker_tpu_torch.train.rvq_trainer` or
-  :mod:`~syntalker_tpu_torch.train.diffusion_trainer`.
+  :mod:`~syntalker_tpu_torch.train.diffusion_trainer`. On the ``beat330``
+  representation the features are ``pose_to_part_rot6d`` under the pose
+  statistics, with the lower part's translation velocity; on ``h3d623``
+  (the text-control stack) they are the cache's 623-d ``h3d`` arrays under
+  the h3d statistics, cut by ``part_mask_623`` (no translation channel),
+  and a frozen TMR motion encoder (``tmr_motion``) gives the denoiser its
+  prompt where a batch has none.
 
 Batches come from the host ``BatchLoader`` or, with ``train.device_data``,
 from a ``DeviceDataset``: the whole window set on the trainer's device,
@@ -23,7 +28,7 @@ each batch gathered there by index. A set above the device's budget raises
 instead, as JAX's does. Every draw of a step comes from the train state's
 ``torch.Generator`` unless the caller passes ``draws``, a callable
 ``(it) -> draws`` of the loop's iteration (the CPU tests feed JAX's draws
-this way). More than one device and the ``h3d623`` representation raise.
+this way). More than one device raises.
 """
 
 from __future__ import annotations
@@ -42,8 +47,9 @@ from syntalker_tpu_torch.config import ExperimentConfig, body_part_rvq_config
 from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.data.cache import BatchLoader, BeatCache, DatasetTooLargeError, DeviceDataset
 from syntalker_tpu_torch.data.features import pose_to_part_rot6d
-from syntalker_tpu_torch.data.h3d import H3D_PART_DIMS
-from syntalker_tpu_torch.data.stats import PoseStats, identity_pose_stats, load_pose_stats
+from syntalker_tpu_torch.data.h3d import H3D_PART_DIMS, part_mask_623
+from syntalker_tpu_torch.data.stats import (H3DStats, PoseStats, identity_h3d_stats, identity_pose_stats,
+                                            load_h3d_stats, load_pose_stats)
 from syntalker_tpu_torch.data.vocab import Vocab
 from syntalker_tpu_torch.device import resolve_device
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
@@ -97,10 +103,6 @@ def check_supported(cfg: ExperimentConfig) -> None:
             f"train.data_parallel={cfg.train.data_parallel}, train.model_parallel={cfg.train.model_parallel}: "
             "the port trains on one GPU; data and model parallelism wait for its multi-GPU slice "
             "(ROADMAP.md, 'Multi-GPU')")
-    if cfg.representation == "h3d623":
-        raise NotImplementedError(
-            "representation h3d623: the port's trainers run the beat2 representation; the h3d623 trainers "
-            "wait for their slice (ROADMAP.md, 'Training, part B')")
 
 
 def pose_stats(cfg: ExperimentConfig, stats: Optional[PoseStats]) -> PoseStats:
@@ -108,6 +110,11 @@ def pose_stats(cfg: ExperimentConfig, stats: Optional[PoseStats]) -> PoseStats:
     if stats is not None:
         return stats
     return load_pose_stats(cfg.data.mean_std_dir) if Path(cfg.data.mean_std_dir).exists() else identity_pose_stats()
+
+
+def h3d_stats(cfg: ExperimentConfig) -> H3DStats:
+    """The 623-d statistics in ``data.mean_std_dir``, else identity."""
+    return load_h3d_stats(cfg.data.mean_std_dir) if Path(cfg.data.mean_std_dir).exists() else identity_h3d_stats()
 
 
 Draws = Optional[Callable[[int], object]]
@@ -164,10 +171,16 @@ class _Loop:
 class DiffusionTrainer(_Loop):
     """Epoch-based denoiser training (the reference's
     diffusion_rvqvae_trainer.py:543-571) on latents of the frozen RVQ stack
-    of ``cfg.rvq_ckpts``."""
+    of ``cfg.rvq_ckpts``. On ``h3d623``, ``tmr_motion`` (a frozen
+    ``ActorAgnosticEncoder`` on the trainer's device) embeds each batch's
+    normalized 623-d clip, and its ``mu`` is the prompt of a batch without
+    one (the self-supervised prompt channel,
+    h3d_diffusion_new_trainer.py:351-392)."""
 
-    def __init__(self, cfg: ExperimentConfig, cache: BeatCache, stats: Optional[PoseStats] = None, *, device=None):
+    def __init__(self, cfg: ExperimentConfig, cache: BeatCache, stats: Optional[PoseStats] = None, *,
+                 tmr_motion: Optional[torch.nn.Module] = None, device=None):
         self._init_loop(cfg, cache, cfg.train.batch_size, device)
+        self.tmr_motion = tmr_motion
         self.stats = pose_stats(cfg, stats)
         self.mdm = build_mdm(cfg.mdm, seed=cfg.train.seed, device=self.device)
         if cfg.data.vocab_path and Path(cfg.data.vocab_path).exists():
@@ -181,18 +194,39 @@ class DiffusionTrainer(_Loop):
         self.optimizer = optim.make_diffusion_optimizer(cfg.train.lr, cfg.train.grad_clip)
         self.state = ts.create_train_state(self.mdm, self.optimizer,
                                            torch.Generator(self.device).manual_seed(cfg.train.seed))
-        self._encode_latent = make_latent_encoder(self.rvq, self.stats, latent_scale=cfg.latent_scale)
         self._raw_step = make_diffusion_train_step(self.mdm, self.diffusion, self.optimizer,
                                                    DiffusionTrainConfig(cfg.pre_frames, cfg.latent_scale))
-        self._batch_keys = ("pose", "trans_v", "audio", "word")
+        if cfg.representation == "h3d623":
+            self.h3d_stats = h3d_stats(cfg)
+            self._masks = {p: torch.as_tensor(part_mask_623(p), device=self.device).long() for p in J.LATENT_SLICES}
+            self._batch_keys = ("h3d", "audio", "word")
+        else:
+            self._encode_latent = make_latent_encoder(self.rvq, self.stats, latent_scale=cfg.latent_scale)
+            self._batch_keys = ("pose", "trans_v", "audio", "word")
         self.tracker = EpochTracker({"fid": False, "bc": True, "l1div": True})
+
+    @torch.no_grad()
+    def _h3d_inputs(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        x = self.h3d_stats.normalize(batch["h3d"])
+        latent_in = torch.cat([self.rvq[p][0].map2latent(x[..., self._masks[p]]) for p in J.LATENT_SLICES],
+                              dim=-1) / self.cfg.latent_scale
+        out = {"latent_in": latent_in}
+        if "prompt" in batch:
+            out["prompt"] = batch["prompt"]
+        elif self.tmr_motion is not None:
+            out["prompt"] = self.tmr_motion(x)[0]
+        return out
 
     def featurize(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A window batch -> the step's inputs: scaled latents of the frozen
-        encoders, the raw audio and the word ids."""
-        parts = pose_to_part_rot6d(batch["pose"][..., : J.AXIS_ANGLE_DIM])
-        latent_in = self._encode_latent(parts["upper"], parts["hands"], parts["lower"], batch["trans_v"])
-        return {"latent_in": latent_in, "audio": batch["audio"], "word": batch["word"].long()}
+        encoders (and, on ``h3d623``, the prompt), the raw audio and the
+        word ids."""
+        if self.cfg.representation == "h3d623":
+            out = self._h3d_inputs(batch)
+        else:
+            parts = pose_to_part_rot6d(batch["pose"][..., : J.AXIS_ANGLE_DIM])
+            out = {"latent_in": self._encode_latent(parts["upper"], parts["hands"], parts["lower"], batch["trans_v"])}
+        return {**out, "audio": batch["audio"], "word": batch["word"].long()}
 
     def step(self, state: ts.TrainState, batch: Dict[str, torch.Tensor], draws=None):
         return self._raw_step(state, self.featurize(batch), draws=draws)
@@ -253,16 +287,25 @@ class RVQTrainer(_Loop):
         self.state = ts.create_train_state(self.module, self.optimizer,
                                            torch.Generator(self.device).manual_seed(cfg.train.seed),
                                            quantizer_state=init_rvq_state(rcfg.quantizer, self.device))
-        self.use_trans = self.part == "lower" and cfg.data.use_trans
+        self.h3d = cfg.representation == "h3d623"
+        self.use_trans = self.part == "lower" and cfg.data.use_trans and not self.h3d
         self._raw_step = make_rvq_train_step(self.module, self.optimizer,
                                              RVQLossConfig(commit_weight=rt.commit_weight))
-        self._batch_keys = ("pose", "trans_v")
+        if self.h3d:
+            self.h3d_stats = h3d_stats(cfg)
+            self._mask = torch.as_tensor(part_mask_623(self.part), device=self.device).long()
+            self._batch_keys = ("h3d",)
+        else:
+            self._batch_keys = ("pose", "trans_v")
         self.tracker = EpochTracker()
 
     def featurize(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """A window batch -> the part's normalized rot6d features, with the
-        normalized translation velocity on the lower part when
+        """A window batch -> the part's normalized features: on ``h3d623``
+        the part's channels of the normalized 623-d array; else its rot6d,
+        with the normalized translation velocity on the lower part when
         ``data.use_trans``."""
+        if self.h3d:
+            return self.h3d_stats.normalize(batch["h3d"])[..., self._mask]
         parts = pose_to_part_rot6d(batch["pose"][..., : J.AXIS_ANGLE_DIM])
         x = self.stats.normalize_part(parts[self.part], self.part)
         if self.use_trans:

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``syntalker_tpu_torch`` (every
 submodule, the train steps, optimizers, trainers, data path, registries,
-the evaluation slice and the train and evaluation CLIs included) and
+the evaluation and text-control slices and the train and evaluation CLIs
+included) and
 ``chip_smoke.py`` pulls in neither JAX, flax, optax, orbax nor the JAX
 package, nor does running those CLIs' ``--help``; entry points refuse to fall back to the CPU silently, and the
 ctypes signatures agree with the C entry points of the CUDA sources."""
@@ -22,7 +23,9 @@ from syntalker_tpu_torch.config import load_config
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.models.denoiser import MDMConfig, build_mdm
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
-from syntalker_tpu_torch.models.tmr import TextPipeline, TMRConfig
+from syntalker_tpu_torch.eval.harness_h3d import H3DEvaluator
+from syntalker_tpu_torch.eval.t2m import T2MEvalConfig, T2MEvaluator
+from syntalker_tpu_torch.models.tmr import TextPipeline, TMRConfig, load_tmr_motion
 from syntalker_tpu_torch.ops import _build
 from syntalker_tpu_torch.serving import MotionGenerationService
 from syntalker_tpu_torch.streaming import StreamingMotionSession
@@ -72,7 +75,14 @@ def test_evaluation_modules_are_walked():
         assert (PKG / rel).exists(), rel
 
 
-@pytest.mark.parametrize("cli", ("train", "train_rvq", "test", "train_aux"))
+def test_text_control_modules_are_walked():
+    """The text-control (h3d) slice's modules are among those the probe imports."""
+    for rel in ("eval/t2m.py", "eval/harness_h3d.py", "cli/test_h3d.py", "data/amass.py", "data/word_bert.py",
+                "data/bvh.py"):
+        assert (PKG / rel).exists(), rel
+
+
+@pytest.mark.parametrize("cli", ("train", "train_rvq", "test", "train_aux", "test_h3d"))
 def test_train_cli_help_pulls_in_no_jax(cli):
     code = ("import json, runpy, sys\n"
             f"sys.argv = ['{cli}', '--help']\n"
@@ -97,7 +107,8 @@ def test_import_pulls_in_no_jax():
     assert forbidden == "[]"
     walked = set(json.loads(imported))
     for name in ("ops.smplx", "data.h3d", "models.skeleton", "models.eval_vae", "eval.metrics", "eval.harness",
-                 "train.ae_trainer", "cli.test", "cli.train_aux"):
+                 "train.ae_trainer", "cli.test", "cli.train_aux", "eval.t2m", "eval.harness_h3d", "cli.test_h3d",
+                 "data.amass", "data.word_bert", "data.bvh"):
         assert f"syntalker_tpu_torch.{name}" in walked, name
 
 
@@ -137,6 +148,14 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
             trainer(tiny, BeatCache("unused"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceDataset(BeatCache("unused"), ("pose",), 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T2MEvaluator(T2MEvalConfig(hidden=4, dim_movement=4, dim_coemb=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T2MEvaluator.from_artifact()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        H3DEvaluator(mdm=None, diffusion=make_diffusion(steps=4), rvq_modules={}, h3d_stats=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_tmr_motion(ROOT / "weights" / "t2m_oracle" / "tmr.npz")
 
 
 def test_ctypes_signatures_match_the_sources():

@@ -419,3 +419,69 @@ def test_generate_clip_on_the_card_matches_plain(dev, tmp_path):
     ref = clip(lambda x, t_emb, cond: mdm.denoise(x, None, cond, t_emb=t_emb, dtype=torch.float32))
     assert out["npz"]["poses"].shape == (240, 165) and np.isfinite(out["npz"]["poses"]).all()
     assert rel_err(out["latents"], ref["latents"]) < 5e-2
+
+
+def test_h3d_generate_clip_on_the_card_matches_plain(dev, tmp_path, monkeypatch):
+    """``H3DEvaluator.generate_clip`` at a tiny width on the card with an
+    upper-body prompt (three guidance branches in one K2 call a step, the
+    decode through K3) against the same clip on the plain f32
+    ``MDM.denoise``: the sampled latents (the decode's snap is
+    discontinuous, so the decode is not compared); exact K2 and K3 counts,
+    and the oracle's embedding of the generated motion on the card against
+    the CPU."""
+    import numpy as np
+
+    from syntalker_tpu_torch.eval import harness_h3d
+
+    from syntalker_tpu_torch.data.beat_builder import build_beat_cache
+    from syntalker_tpu_torch.data.h3d import H3D_PART_DIMS
+    from syntalker_tpu_torch.data.stats import identity_h3d_stats
+    from syntalker_tpu_torch.data.synthetic import make_corpus
+    from syntalker_tpu_torch.eval.harness_h3d import H3DEvaluator
+    from syntalker_tpu_torch.eval.t2m import T2MEvaluator
+    from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
+    from syntalker_tpu_torch.models.tmr import TextPipeline, TMRConfig
+    from syntalker_tpu_torch.ops.quantize import RVQConfig
+    from syntalker_tpu_torch.ops.smplx import synthetic_smplx_model
+
+    make_corpus(tmp_path / "corpus", speakers=(2,), clips_per_speaker=1, test_fraction=1.0, seconds_range=(8.0, 8.5))
+    cache, _ = build_beat_cache(tmp_path / "corpus", tmp_path / "cache", split="test", speakers=(2,),
+                                smplx_model=synthetic_smplx_model(device=dev))
+    cfg = MDMConfig(latent_dim=256, ff_size=512, num_layers=2, num_heads=4, rope_heads=4, audio_feat_dim=16,
+                    word_feat_dim=16, word_embed_dim=8, vocab_size=32, use_prompt=True, prompt_dim=16)
+    model = build_mdm(cfg, seed=1, device=dev)
+    rvq = {part: build_rvqvae(RVQVAEConfig(input_dim=H3D_PART_DIMS[part], width=64, depth=1,
+                                           quantizer=RVQConfig(2, 64, 512)), seed=20 + i, device=dev)
+           for i, part in enumerate(("upper", "hands", "lower"))}
+    oracle = T2MEvaluator.from_artifact(device=dev)
+
+    def evaluator(denoise=None):
+        return H3DEvaluator(mdm=model, diffusion=make_diffusion(steps=100, timestep_respacing="ddim4"),
+                            rvq_modules=rvq, h3d_stats=identity_h3d_stats(),
+                            text_pipeline=TextPipeline(TMRConfig(latent_dim=16, ff_size=32, num_layers=1, num_heads=2),
+                                                       device=dev),
+                            t2m_evaluator=oracle, denoise=denoise, device=dev)
+
+    latents = []
+    decode = harness_h3d.G.decode_latents_h3d
+    monkeypatch.setattr(harness_h3d.G, "decode_latents_h3d", lambda lat, **kw: latents.append(lat) or decode(lat, **kw))
+    card = evaluator()
+    plain = evaluator(lambda x, t_emb, cond: model.denoise(x, None, cond, t_emb=t_emb, dtype=torch.float32))
+    sample = cache.get(0)
+    plan = card.plan(sample)
+    noise = card.clip_noise((0, 0, 0), plan)
+    prompts = {"upper": "raise both arms"}
+    card.generate_clip(sample, noise, prompts=prompts)  # captures K2's graph at the three branches' batch
+    before = (mdm_cuda.launches["block_stack"], quantize_cuda.launches["rvq_encode"])
+    out = card.generate_clip(sample, noise, prompts=prompts)
+    torch.cuda.synchronize()
+    assert mdm_cuda.launches["block_stack"] - before[0] == plan.num_windows * 4 * mdm_cuda.block_launches(2)
+    assert quantize_cuda.launches["rvq_encode"] - before[1] == 3
+    ref = plain.generate_clip(sample, noise, prompts=prompts)
+    assert out["features"].shape == ref["features"].shape == (out["n_frames"], 623)
+    assert np.isfinite(out["joints"]).all()
+    assert rel_err(latents[1], latents[2]) < 5e-2  # bf16 weights and matmul inputs against f32, 4 steps
+    n = np.asarray([out["n_frames"]])
+    emb = oracle.get_motion_embeddings(out["features"][None], n)
+    cpu = T2MEvaluator.from_artifact(device="cpu").get_motion_embeddings(out["features"][None], n)
+    assert rel_err(torch.as_tensor(emb), torch.as_tensor(cpu)) < 1e-5

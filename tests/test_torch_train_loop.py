@@ -178,11 +178,15 @@ def test_rvq_trainer_streams_host_batches_above_the_budget(rvq_caches, tmp_path,
 
 def test_trainers_refuse_what_is_not_ported(rvq_caches):
     pc, _, _ = rvq_caches
-    for over in (["train.data_parallel=2"], ["train.model_parallel=2"], ["representation=h3d623"]):
-        with pytest.raises(NotImplementedError, match="multi-GPU|h3d623"):
+    for over in (["train.data_parallel=2"], ["train.model_parallel=2"]):
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
             PL.RVQTrainer(load_config(None, TINY_RVQ + over), pc, device="cpu")
-        with pytest.raises(NotImplementedError, match="multi-GPU|h3d623"):
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
             PL.DiffusionTrainer(load_config(None, TINY_RVQ + over), pc, device="cpu")
+    # the h3d623 representation is ported (tests/test_torch_h3d_train.py): its trainers build
+    h3d = load_config(None, TINY_RVQ + ["representation=h3d623"])
+    assert PL.RVQTrainer(h3d, pc, device="cpu").module.cfg.input_dim == 156
+    assert PL.DiffusionTrainer(h3d, pc, device="cpu")._batch_keys == ("h3d", "audio", "word")
     empty = PL.RVQTrainer(load_config(None, TINY_RVQ + ["rvq_train.batch_size=100000"]), pc, device="cpu")
     with pytest.raises(ValueError, match="no full batches"):
         empty.train(1)

@@ -67,9 +67,21 @@ RVQ-VAEs through ``cli.train_rvq.main()`` (300 iterations each at batch
 TMR text head, DDIM-50, 3 replications, 2 steering clips): exact K2 and
 K3 counts against the window plans, K2 at the guided step's three
 branches and every K3 call against their plain versions, the oracle on
-the card against the CPU, finite metrics. Takes about eight minutes on an
-H100, the ~10 s build included (``train_loop`` with ``evaluate`` about
-three and a half, ``h3d`` about one and a half).
+the card against the CPU, finite metrics. ``convert_demo`` (last) takes a
+user's path from the reference's torch checkpoints to a video: seeded
+modules at the widths of ``configs/diffusion_beat2.yaml`` saved in the
+reference's layouts and file shapes (the denoiser's WavEncoder with
+BatchNorm statistics, the three RVQ-VAEs, the eval VAE, the face VQ-VAE),
+the port's converters, the denoiser and RVQ stack written as the npz
+checkpoints ``generate`` reads, then ``cli.demo`` one-shot on an 8 s wav
+(``generate --render``: K2 a DDIM-50 step, K3 a part, forward kinematics
+on the card, the stick figure drawn on the host; exact counts, every K3
+call and K2 at the clip's shape against their plain versions, the warm
+clip), K1 (``sample_windows_fused_loop``) on the converted denoiser
+against the plain f32 sampler, the clip's joints and the converted eval
+models on the card against the CPU. Takes about eight minutes on an H100,
+the ~10 s build included (``train_loop`` with ``evaluate`` about three
+and a half, ``h3d`` about one and a half, ``convert_demo`` about one).
 Prints one JSON line per phase, then the ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
@@ -94,8 +106,12 @@ import numpy as np
 import torch
 from scipy.io import wavfile
 
+from syntalker_tpu_torch import bridge
+from syntalker_tpu_torch import convert as CV
 from syntalker_tpu_torch import generation as G
 from syntalker_tpu_torch import native
+from syntalker_tpu_torch import render as R
+from syntalker_tpu_torch.cli import demo as DEMO
 from syntalker_tpu_torch.cli import generate as GEN
 from syntalker_tpu_torch.cli import test as TEST
 from syntalker_tpu_torch.cli import test_h3d as TEST_H3D
@@ -114,6 +130,8 @@ from syntalker_tpu_torch.data.stats import compute_mean_velocity_from_clips, ide
 from syntalker_tpu_torch.device import full_f32
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.eval.metrics import frechet_distance
+from syntalker_tpu_torch.eval.t2m import flatten_params
+from syntalker_tpu_torch.models.eval_vae import build_eval_vae, build_face_vqvae
 from syntalker_tpu_torch.models.denoiser import Conditioning, MDMConfig, build_mdm
 from syntalker_tpu_torch.models.tmr import TextPipeline, embed_prompts, load_tmr_motion
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae, draw_rvqvae
@@ -2314,6 +2332,263 @@ def phase_h3d(rvq_iters: int = H3D_RVQ_ITERS, rvq_overrides=(), mdm_overrides=()
     return out
 
 
+# ---------------------------------------------------------------------------
+# convert_demo phase: the reference's checkpoints converted, then the demo
+# ---------------------------------------------------------------------------
+
+DEMO_SECONDS = 8.0  # 240 frames: 2 windows, 60 latent frames, 240 output frames
+DEMO_SEED = 41
+FK_REL = 1e-5  # f32 forward kinematics on the card and on the CPU, sums in another order
+EVAL_REL = 1e-4  # the eval VAE and the face VQ-VAE in full f32 on the card and on the CPU, convolutions in another order
+
+
+def reference_layouts():
+    """``tests/torch_reference_checkpoints.py`` (no JAX), loaded by path as
+    ``phase_k3_card_rows`` loads the card tests."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("reference_layouts", Path(__file__).parent / "tests" /
+                                                  "torch_reference_checkpoints.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_reference_checkpoints(d: Path, cfg) -> dict:
+    """Seeded modules at the config's widths on the CPU, saved as the
+    reference's checkpoint files: the denoiser with a BatchNorm WavEncoder
+    (random positive running variances) as a bare state dict
+    (``last_500.bin``), each body part's RVQ-VAE as ``{'net': ...}`` with
+    DataParallel's ``module.`` prefix, the eval VAE and the face VQ-VAE as
+    ``{'model_state': ...}``."""
+    ref = reference_layouts()
+    source = ref.perturb_wav_norms(bridge.mdm_to_flax(build_mdm(dataclasses.replace(cfg.mdm, audio_norm="batch"),
+                                                                seed=DEMO_SEED, device="cpu")), seed=DEMO_SEED)
+    paths = {"mdm": d / "last_500.bin"}
+    torch.save(ref.mdm_state_dict(source), paths["mdm"])
+    for i, part in enumerate(("upper", "hands", "lower")):
+        module, state = build_rvqvae(rvq_config(cfg, part), seed=DEMO_SEED + 1 + i, device="cpu")
+        sd = ref.rvqvae_state_dict(ref.flax_tree(module), state.codebook.numpy(), depth=cfg.rvq_depth)
+        paths[part] = d / f"rvq_{part}" / "net_300000.pth"
+        paths[part].parent.mkdir()
+        torch.save({"net": ref.module_prefixed(sd)}, paths[part])
+    paths["eval_vae"], paths["face_vqvae"] = d / "AESKConv_240_100.bin", d / "face_vqvae.bin"
+    torch.save({"model_state": ref.eval_vae_state_dict(ref.flax_tree(build_eval_vae(seed=DEMO_SEED, device="cpu")))},
+               paths["eval_vae"])
+    torch.save({"model_state": ref.face_vqvae_state_dict(ref.flax_tree(build_face_vqvae(seed=DEMO_SEED,
+                                                                                      device="cpu")))},
+               paths["face_vqvae"])
+    return paths
+
+
+def convert_checkpoints(d: Path, cfg, paths: dict) -> dict:
+    """The reference files through the port's converters: the denoiser and
+    the RVQ stack written as the npz checkpoints ``generate`` reads
+    (``test_ckpt``, ``rvq_ckpts``), the eval models' flax trees kept."""
+    mdm_npz = d / "mdm.npz"
+    np.savez(mdm_npz, **flatten_params(CV.convert_mdm(torch.load(paths["mdm"], map_location="cpu"),
+                                                      num_layers=cfg.mdm.num_layers, num_heads=cfg.mdm.num_heads)))
+    rvq_npz = []
+    for part in ("upper", "hands", "lower"):
+        rcfg = rvq_config(cfg, part)
+        params, qstate = CV.load_torch_rvqvae(str(paths[part]), depth=rcfg.depth,
+                                              num_quantizers=rcfg.quantizer.num_quantizers)
+        rvq_npz.append(d / f"rvq_{part}.npz")
+        np.savez(rvq_npz[-1], **flatten_params({**params, "quantizer_state": bridge.rvq_state_to_flax(qstate)}))
+    return {"test_ckpt": mdm_npz, "rvq_ckpts": rvq_npz,
+            "eval_vae": CV.convert_eval_vae(CV.load_torch_eval_checkpoint(str(paths["eval_vae"]))),
+            "face_vqvae": CV.convert_face_vqvae(CV.load_torch_eval_checkpoint(str(paths["face_vqvae"])))}
+
+
+def face_near_ties(model, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows whose top-2 code distances lie within K3_TIE·|z|² (CPU, f64)."""
+    z = model.encoder(x).reshape(-1, model.codebook.shape[1]).double()
+    dist = torch.cdist(z, model.codebook.double()) ** 2
+    top2 = dist.topk(2, dim=-1, largest=False).values
+    return (top2[:, 1] - top2[:, 0]) <= K3_TIE * (z * z).sum(-1)
+
+
+def eval_models_card_vs_cpu(trees: dict) -> dict:
+    """The converted eval VAE's ``map2latent`` and the face VQ-VAE's encode
+    and decode, on the card against the CPU, on seeded inputs."""
+    g = torch.Generator().manual_seed(DEMO_SEED)
+    out = {}
+    rot6d = torch.randn(2, 64, 330, generator=g) * 0.5
+    vae = {dev: bridge.eval_vae_from_flax(trees["eval_vae"], device=dev) for dev in ("cpu", DEV)}
+    with torch.no_grad():
+        lat = {dev: vae[dev].map2latent(rot6d.to(dev)).cpu() for dev in vae}
+    out["eval_vae_map2latent"] = {"shape": list(lat["cpu"].shape), "rel_err": rel_err(lat[DEV], lat["cpu"]),
+                                  "tol": EVAL_REL}
+    face_in = torch.randn(2, 64, 106, generator=g) * 0.5
+    face = {dev: bridge.face_vqvae_from_flax(trees["face_vqvae"], device=dev) for dev in ("cpu", DEV)}
+    with torch.no_grad():
+        idx = {dev: face[dev].map2index(face_in.to(dev)).cpu() for dev in face}
+        tie = face_near_ties(face["cpu"], face_in, idx["cpu"])
+        dec = {dev: face[dev].decode_indices(idx["cpu"].to(dev)).cpu() for dev in face}
+    differ = (idx[DEV] != idx["cpu"]).reshape(-1)
+    out["face_vqvae"] = {"rows": differ.numel(), "codes_used": int(idx["cpu"].unique().numel()),
+                         "rows_differing": int(differ.sum()), "near_tie_rows": int(tie.sum()),
+                         "rows_differing_off_ties": int((differ & ~tie).sum()),
+                         "decode_rel_err": rel_err(dec[DEV], dec["cpu"]), "tol": EVAL_REL}
+    assert out["eval_vae_map2latent"]["rel_err"] <= EVAL_REL, out
+    assert out["face_vqvae"]["rows_differing_off_ties"] == 0 and out["face_vqvae"]["decode_rel_err"] <= EVAL_REL, out
+    return out
+
+
+def phase_convert_demo(seconds: float = DEMO_SECONDS, overrides=()) -> dict:
+    """A user's path from the reference's torch checkpoints to a video, at
+    the widths of ``configs/diffusion_beat2.yaml`` (seeded random weights):
+    reference-layout state dicts saved in the reference's file shapes; the
+    port's converters; the denoiser (its BatchNorm folded, ``audio_norm=none``)
+    and the RVQ stack written as npz checkpoints; ``cli.demo`` one-shot on a
+    synthetic wav (``generate --render``: K2 at every DDIM-50 step, K3 once a
+    part, forward kinematics on the card, the drawing on the host), with
+    exact K2/K3 counts, every K3 call and K2 at the clip's shape held
+    against their plain versions, and the warm ms of the same clip; K1
+    (``sample_windows_fused_loop``) on the converted denoiser for the same
+    windows against the plain f32 sampler; the clip's joints on the card
+    against the CPU; the converted eval VAE and face VQ-VAE on the card
+    against the CPU. Where matplotlib or imageio is missing, the demo runs
+    all the same, forward kinematics on the card included, but the drawing
+    is skipped and a line says so."""
+    import importlib.util
+
+    out = {"phase": "convert_demo", "card": card_name_and_power_limit()}
+    t_phase = time.perf_counter()
+    missing = [m for m in ("matplotlib", "imageio") if importlib.util.find_spec(m) is None]
+    if missing:
+        print(f"convert_demo: drawing not run: {', '.join(missing)} not installed", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        base = load_config(BEAT2_CONFIG, list(overrides))
+        t0 = time.perf_counter()
+        paths = write_reference_checkpoints(d, base)
+        out["state_dicts_s"] = time.perf_counter() - t0
+        out["reference_files_mb"] = {k: p.stat().st_size / 2**20 for k, p in paths.items()}
+        t0 = time.perf_counter()
+        conv = convert_checkpoints(d, base, paths)
+        out["convert_s"] = time.perf_counter() - t0
+
+        files = write_generate_inputs(d, base.mdm.vocab_size, seconds)
+        ov = [*overrides, f"test_ckpt={conv['test_ckpt']}",
+              f"rvq_ckpts=[{','.join(map(str, conv['rvq_ckpts']))}]", "mdm.audio_norm=none",
+              f"data.mean_std_dir={d / 'no_stats'}"]
+        run_dir = d / "demo"
+        drawn = []  # (joints, wall s) of each drawing; without matplotlib or imageio the joints alone
+        draw = R.render_stick_figure
+
+        def render_stick_figure(joints, out_path, **kw):
+            t0 = time.perf_counter()
+            path = Path(out_path).with_suffix(".gif") if missing else draw(joints, out_path, **kw)
+            drawn.append((joints, time.perf_counter() - t0))
+            return path
+
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        R.render_stick_figure = render_stick_figure
+        try:
+            with recorded_k3() as k3_calls:
+                video = Path(DEMO.main(["-c", BEAT2_CONFIG, "--wav", str(files["wav"]), "--run-dir", str(run_dir),
+                                        *ov]))
+                torch.cuda.synchronize()
+        finally:
+            R.render_stick_figure = draw
+        out["demo_main_s"] = time.perf_counter() - t0
+        counts = {**mdm_cuda.launches, **quantize_cuda.launches}
+        cfg = load_config(BEAT2_CONFIG, ov)
+        npz_path = run_dir / "demo_out.npz"
+        with np.load(npz_path) as f:
+            poses, trans = f["poses"], f["trans"]
+        plan = G.plan_windows(int(seconds * cfg.data.pose_fps), pose_length=cfg.data.pose_length,
+                              pre_frames=cfg.pre_frames)
+        diffusion = make_diffusion(schedule=cfg.diffusion.schedule, steps=cfg.diffusion.steps,
+                                   timestep_respacing=cfg.diffusion.timestep_respacing or "ddim50")
+        # one K2 pass a step a window, and one more at the first step, before its graph is captured
+        want = {"ddim_window": 0, "rvq_encode": 3,
+                "block_stack": (plan.num_windows * diffusion.num_steps + 1) * mdm_cuda.block_launches(
+                    cfg.mdm.num_layers)}
+        assert counts == want, (counts, want)
+        assert poses.shape == (4 * plan.out_latent_frames, 165) and trans.shape == (poses.shape[0], 3), poses.shape
+        assert np.isfinite(poses).all() and np.isfinite(trans).all()
+        k3 = k3_calls_check(k3_calls)
+        (card_joints, draw_s), = drawn
+        out["video"] = {"file": video.name, "drawn": not missing, "draw_and_encode_s": None if missing else draw_s}
+        if not missing:
+            import imageio
+
+            assert video.exists() and video.parent == run_dir and video.stem == "demo_out", video
+            out["video"].update(bytes=video.stat().st_size, frames=len(imageio.mimread(video, memtest=False)))
+            assert out["video"]["frames"] == poses.shape[0], out["video"]
+
+        # the same clip warm, on models built once; K2 at the clip's shape against its plain version
+        models = GEN.load_models(cfg, DEV)
+        mdm = models[0]
+        weights = mdm_cuda.stack_block_weights(mdm)
+        kernel = mdm_cuda.make_fused_denoise(mdm, weights)
+
+        def clip():
+            return GEN.generate_clip(cfg, files["wav"], generator=torch.Generator(DEV).manual_seed(cfg.train.seed),
+                                     denoise=kernel, models=models, device=DEV)
+
+        clip()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = clip()
+        torch.cuda.synchronize()
+        out["warm_clip_ms"] = 1e3 * (time.perf_counter() - t0)
+        assert np.array_equal(warm["npz"]["poses"], poses), "the warm clip is the demo's"
+        x = torch.randn(1, plan.latent_window, cfg.mdm.latent_dim, device=DEV,
+                        generator=torch.Generator(DEV).manual_seed(DEMO_SEED))
+        k2_err = rel_err(mdm_cuda.block_stack(x, weights, num_heads=cfg.mdm.num_heads),
+                         mdm_cuda.block_stack_plain(x, weights, num_heads=cfg.mdm.num_heads))
+        assert k2_err <= K2_REL, k2_err
+
+        # K1 on the converted denoiser for the same windows, B=1
+        y, sr = A.load_wav_mono(files["wav"], cfg.data.audio_sr)
+        feats = A.onset_amplitude_features(y, sr)[None]
+        aw = torch.as_tensor(G.window_audio(feats, plan, sr=sr, fps=cfg.data.pose_fps), device=DEV)
+        ww = torch.zeros(plan.num_windows, 1, plan.pose_length, dtype=torch.long, device=DEV)
+        seed = torch.zeros(1, plan.pre_frames, cfg.mdm.latent_total_dim, device=DEV)
+        noise = G.draw_noise(plan, 1, torch.Generator(DEV).manual_seed(DEMO_SEED), DEV)
+        sampler = G.make_fused_loop_sampler(mdm, diffusion, plan)
+        G.sample_windows_fused_loop(mdm, diffusion, plan, aw, ww, seed, noise, fused=sampler)  # captures K1's graph
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k1_lat = G.sample_windows_fused_loop(mdm, diffusion, plan, aw, ww, seed, noise, fused=sampler)
+        torch.cuda.synchronize()
+        k1_ms = 1e3 * (time.perf_counter() - t0)
+        k1_counts = {**mdm_cuda.launches, **quantize_cuda.launches}
+        want_k1 = {"ddim_window": plan.num_windows * mdm_cuda.window_launches(cfg.mdm.num_layers,
+                                                                               diffusion.num_steps),
+                   "block_stack": 0, "rvq_encode": 0}
+        assert k1_counts == want_k1, (k1_counts, want_k1)
+        f32 = dataclasses.replace(cfg.mdm, dtype=torch.float32, audio_dtype=torch.float32)
+        ref_mdm = bridge.mdm_from_flax(f32, bridge.mdm_to_flax(mdm), device=DEV)
+        k1_err = rel_err(k1_lat, G.sample_windows_lean(ref_mdm, diffusion, plan, aw, ww, seed, noise))
+        assert k1_err <= SAMPLER_REL, k1_err
+
+        # the joints the demo's render_npz computed on the card against the CPU's
+        cpu_joints = R._npz_joints(npz_path, device="cpu")
+        fk_err = float(np.abs(card_joints - cpu_joints).max() / np.abs(cpu_joints).max())
+        assert card_joints.shape == (poses.shape[0], 55, 3) and fk_err <= FK_REL, fk_err
+        out.update({
+            "config": BEAT2_CONFIG, "overrides": list(overrides), "seconds": seconds, "frames": poses.shape[0],
+            "windows": plan.num_windows, "steps": diffusion.num_steps,
+            "launches": counts, "rvq_kernels": counts["rvq_encode"] * quantize_cuda.rvq_kernel_launches(6),
+            "k3_vs_plain": k3, "k2_vs_plain": {"samples": 1, "rows": plan.latent_window, "rel_err": k2_err,
+                                               "tol": K2_REL},
+            "k1": {"launches": k1_counts, "ms": k1_ms, "reference": "sample_windows_lean f32",
+                   "rel_err": k1_err, "tol": SAMPLER_REL},
+            "fk_card_vs_cpu": {"joints": list(cpu_joints.shape), "rel_err": fk_err, "tol": FK_REL},
+            "eval_models_card_vs_cpu": eval_models_card_vs_cpu(conv),
+        })
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2352,6 +2627,9 @@ def main() -> int:
     loop = phase_train_loop()
     h3d_launches = phase_h3d()["test_h3d"]
     h3d_launches = {**h3d_launches["launches"], "rvq_encode": h3d_launches["rvq_kernels"]}
+    demo = phase_convert_demo()
+    demo_launches = {"ddim_window": demo["k1"]["launches"]["ddim_window"],
+                     "block_stack": demo["launches"]["block_stack"], "rvq_encode": demo["rvq_kernels"]}
     gen["trained_loop"] = loop["generate"]
     trained_stream_launches = loop["faults"]["stream"]["launches"]
     trained_stream_launches["rvq_kernels"] = loop["faults"]["stream"]["rvq_kernels"]
@@ -2382,6 +2660,7 @@ def main() -> int:
                                for k, v in gen.items()},
          "trained_stream_launches": trained_stream_launches[name if name != "rvq_encode" else "rvq_kernels"],
          "evaluate_launches": evaluate_launches[name], "h3d_eval_launches": h3d_launches[name],
+         "convert_demo_launches": demo_launches[name],
          "error_vs_tol": err}
         for name, source, replaces, r, launches, prompted, streamed, encoded, err in rows
     ]})

@@ -12,10 +12,11 @@ embedded by the TMR text pipeline; the windows sampled (DDIM when the
 schedule is respaced) with the body-part CFG of ``cfg.guidance`` when a
 prompt is given, every step's branches in one K2 call on the card; the
 latents snapped (K3) and decoded; an SMPL-X npz written with the JAX CLI's
-keys. Runs on CUDA unless ``--device cpu``. JAX's threefry noise has no
-PyTorch counterpart: the initial noise comes from a ``torch.Generator``
-seeded with ``train.seed``. Rendering (``--render``) waits for the port of
-``render.py``.
+keys; with ``--render``, a stick-figure video beside it (``render.py``: the
+joints by forward kinematics on the device with the config's SMPL-X model
+or the synthetic stand-in, the drawing on the host). Runs on CUDA unless
+``--device cpu``. JAX's threefry noise has no PyTorch counterpart: the
+initial noise comes from a ``torch.Generator`` seeded with ``train.seed``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from syntalker_tpu_torch import bridge
 from syntalker_tpu_torch import generation as G
-from syntalker_tpu_torch.cli.common import base_parser, setup
+from syntalker_tpu_torch.cli.common import base_parser, load_smplx_if_available, setup
 from syntalker_tpu_torch.config import ExperimentConfig
 from syntalker_tpu_torch.data import audio as A
 from syntalker_tpu_torch.data.stats import identity_pose_stats, load_pose_stats
@@ -141,14 +142,12 @@ def main(argv=None):
     p.add_argument("--transcript", type=str, default="",
                    help="transcript text; energy-aligned to the audio when no TextGrid is given")
     p.add_argument("--out", type=str, default="./outputs/generated.npz")
-    p.add_argument("--render", action="store_true", help="not ported yet")
+    p.add_argument("--render", action="store_true", help="also write a stick-figure video beside --out")
     p.add_argument("--upper-prompt", type=str, default="")
     p.add_argument("--hands-prompt", type=str, default="")
     p.add_argument("--lower-prompt", type=str, default="")
     p.add_argument("--device", type=str, default=None, help="cuda (the default) or cpu")
     args = p.parse_args(argv)
-    if args.render:
-        p.error("--render waits for the port of render.py")
     cfg = setup(args)
 
     result = generate_clip(
@@ -159,6 +158,13 @@ def main(argv=None):
     out.parent.mkdir(parents=True, exist_ok=True)
     np.savez(out, **result["npz"])
     log.info(f"motion -> {out} ({result['npz']['poses'].shape[0]} frames)")
+
+    if args.render:
+        from syntalker_tpu_torch.render import render_npz
+
+        video = render_npz(out, out.with_suffix(""), smplx_model=load_smplx_if_available(cfg, args.device),
+                           device=args.device)
+        log.info(f"video -> {video}")
     return result
 
 

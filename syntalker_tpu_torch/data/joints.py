@@ -2,7 +2,9 @@
 
 A copy of the tables in ``syntalker_tpu/data/joints.py`` (the port keeps its
 own so that it never imports the JAX package). 55 pose joints, 165
-axis-angle dof, 330 rot6d dims; three generated body parts (upper, hands,
+axis-angle dof, 330 rot6d dims, the SMPL-X kinematic tree ``PARENTS``
+(here, with numpy alone, so that the renderer's worker processes import no
+torch; ``ops/smplx.py`` re-exports it); three generated body parts (upper, hands,
 lower + root translation velocity) whose 512-d latents concatenate to the
 1536-d diffusion latent; the per-part gather indices in rot6d and in
 axis-angle space, their boolean masks, and ``scatter_part``, the inverse
@@ -35,6 +37,18 @@ JOINT_NAMES = (
 )
 assert len(JOINT_NAMES) == NUM_JOINTS
 ROT6D_DIM = NUM_JOINTS * 6  # 330
+
+# SMPL-X kinematic tree: parent index per joint (pelvis = -1), the
+# kintree_table of SMPLX_NEUTRAL_2020.npz
+PARENTS = np.array(
+    [
+        -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17,
+        18, 19, 15, 15, 15,
+        20, 25, 26, 20, 28, 29, 20, 31, 32, 20, 34, 35, 20, 37, 38,
+        21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50, 21, 52, 53,
+    ],
+    dtype=np.int32,
+)
 
 UPPER_JOINTS = (3, 6, 9, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21)
 HANDS_JOINTS = tuple(range(25, 55))

@@ -38,6 +38,30 @@ class PoseStats:
     trans_mean: np.ndarray  # (3,)
     trans_std: np.ndarray  # (3,)
 
+    @property
+    def mean_upper(self) -> np.ndarray:
+        return self.mean_full[J.UPPER_6D_IDX]
+
+    @property
+    def std_upper(self) -> np.ndarray:
+        return self.std_full[J.UPPER_6D_IDX]
+
+    @property
+    def mean_hands(self) -> np.ndarray:
+        return self.mean_full[J.HANDS_6D_IDX]
+
+    @property
+    def std_hands(self) -> np.ndarray:
+        return self.std_full[J.HANDS_6D_IDX]
+
+    @property
+    def mean_lower(self) -> np.ndarray:
+        return self.mean_full[J.LOWER_6D_IDX]
+
+    @property
+    def std_lower(self) -> np.ndarray:
+        return self.std_full[J.LOWER_6D_IDX]
+
     def normalize_part(self, x: torch.Tensor, part: str) -> torch.Tensor:
         idx = _PART_IDX[part]
         return (x - _like(self.mean_full[idx], x)) / _like(self.std_full[idx], x)

@@ -18,7 +18,8 @@ Samplers:
 - :func:`sample_windows_lean` — the plain reference of the unprompted η=0
   DDIM path (PyTorch f32, the algebraic folds of the JAX lean sampler);
 - :func:`make_fused_loop_sampler` — unprompted, one K1 call per window;
-  one window of it is :func:`fused_window`;
+  one window of it is :func:`fused_window`, and
+  :func:`sample_windows_fused_loop` its one-shot wrapper;
 - :func:`sample_windows_fused` — unprompted, a host loop over steps, one K2
   call per step.
 
@@ -273,6 +274,16 @@ def make_fused_loop_sampler(mdm: MDM, diffusion, plan: WindowPlan, *, weights_dt
         return _stitch(outs, pre)
 
     return sample
+
+
+def sample_windows_fused_loop(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, word_windows, init_seed, noise, *,
+                              weights_dtype=torch.bfloat16, fused=None) -> torch.Tensor:
+    """One-shot wrapper over :func:`make_fused_loop_sampler`; ``fused`` is
+    a sampler it returned. Callers sampling repeatedly should build the
+    sampler once and pass it: each build stacks the weights again."""
+    if fused is None:
+        fused = make_fused_loop_sampler(mdm, diffusion, plan, weights_dtype=weights_dtype)
+    return fused(audio_windows, word_windows, init_seed, noise)
 
 
 @torch.no_grad()

@@ -129,6 +129,11 @@ def axis_angle_to_rotation_6d(axis_angle: torch.Tensor) -> torch.Tensor:
     return matrix_to_rotation_6d(axis_angle_to_matrix(axis_angle))
 
 
+def rotation_6d_to_axis_angle(d6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) -> (..., 3), the decode path's rotations."""
+    return matrix_to_axis_angle(rotation_6d_to_matrix(d6))
+
+
 def geodesic_distance(m1: torch.Tensor, m2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     """Geodesic angle between rotation matrices (..., 3, 3) -> (...), the
     cosine clipped to [-1 + eps, 1 - eps] (the reference's GeodesicLoss)."""

@@ -22,22 +22,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from syntalker_tpu_torch.data.joints import PARENTS
 from syntalker_tpu_torch.device import resolve_device
 from syntalker_tpu_torch.ops import rotations as rot
 
 NUM_JOINTS = 55
 
-# SMPL-X kinematic tree: parent index per joint (pelvis = -1), the
-# kintree_table of SMPLX_NEUTRAL_2020.npz
-PARENTS = np.array(
-    [
-        -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17,
-        18, 19, 15, 15, 15,
-        20, 25, 26, 20, 28, 29, 20, 31, 32, 20, 34, 35, 20, 37, 38,
-        21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50, 21, 52, 53,
-    ],
-    dtype=np.int32,
-)
 FOOT_JOINTS = (7, 8, 10, 11)  # ankles and feet, the contact labels' joints
 
 

@@ -25,6 +25,7 @@ from syntalker_tpu_torch.models.denoiser import Conditioning, MDMConfig
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig
 from syntalker_tpu_torch.ops import quantize as PQ
 from syntalker_tpu_torch.ops.quantize_cuda import rvq_quantize_eval_fused
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 CONFIGS = sorted(str(p) for p in Path(__file__).resolve().parent.parent.glob("configs/*.yaml"))
 OVERRIDES = {

@@ -23,6 +23,7 @@ from syntalker_tpu_torch.data import cache as PC
 from syntalker_tpu_torch.data.synthetic import make_corpus
 from syntalker_tpu_torch.data.vocab import Vocab
 from syntalker_tpu_torch.ops.smplx import SMPLXModel, synthetic_smplx_model
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 SPEAKERS = (2, 4)
 KEYS = ("pose", "trans_v", "audio", "word")

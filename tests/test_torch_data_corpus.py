@@ -36,6 +36,7 @@ from syntalker_tpu_torch.data import synthetic as PSY
 from syntalker_tpu_torch.data.features import pose_to_part_rot6d
 from syntalker_tpu_torch.diffusion import schedule as PSCH
 from syntalker_tpu_torch.ops import rotations as PR
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 ROT_ATOL = 1e-6
 

@@ -34,6 +34,7 @@ from syntalker_tpu_torch import bridge
 from syntalker_tpu_torch import generation as G
 from syntalker_tpu_torch.data.stats import identity_pose_stats
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 PARTS = (("upper", 78), ("hands", 180), ("lower", 57))
 N_LAT = 116  # a 16 s clip: 4 windows of 28 fresh latent frames after the 4 seed frames

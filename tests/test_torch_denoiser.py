@@ -15,6 +15,7 @@ from syntalker_tpu.models.denoiser import MDMConfig as JaxMDMConfig
 from syntalker_tpu.models.denoiser import create_mdm
 from syntalker_tpu_torch import bridge
 from syntalker_tpu_torch.models.denoiser import Conditioning, MDMConfig
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 JAX_CFG = JaxMDMConfig(
     latent_total_dim=48, latent_dim=256, ff_size=512, num_layers=3, num_heads=4,

@@ -16,6 +16,7 @@ from syntalker_tpu.models.denoiser import Conditioning as JaxConditioning
 from syntalker_tpu_torch.diffusion import cfg, core
 from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.models.denoiser import Conditioning
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 SAMPLER_ABS = 1e-5
 CFG_ABS = 1e-6

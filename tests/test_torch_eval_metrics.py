@@ -15,6 +15,7 @@ from syntalker_tpu.eval import metrics as JM
 from syntalker_tpu.ops import rotations as JR
 from syntalker_tpu_torch.eval import metrics as PM
 from syntalker_tpu_torch.ops import rotations as PR
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 
 def test_l1div_and_srgr_are_jaxs():

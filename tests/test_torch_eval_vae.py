@@ -35,6 +35,7 @@ from syntalker_tpu_torch.train import optim
 from syntalker_tpu_torch.train.state import create_train_state
 
 from test_torch_train_rvq import close
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 REL = 1e-5
 LR = 1e-3

@@ -36,6 +36,7 @@ from syntalker_tpu_torch.train import state as PS
 from syntalker_tpu_torch.train.loop import load_rvq_stack
 
 from test_torch_prompted_sampling import jax_noise
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 TINY = ["mdm.latent_dim=32", "mdm.ff_size=64", "mdm.num_layers=2", "mdm.num_heads=2", "mdm.rope_heads=4",
         "mdm.audio_feat_dim=16", "mdm.word_feat_dim=16", "mdm.word_embed_dim=8", "mdm.vocab_size=64",
@@ -289,6 +290,20 @@ def test_ddpm_config_runs(files, tmp_path):
         assert d["poses"].shape == (240, 165) and np.isfinite(d["poses"]).all()
 
 
-def test_render_is_refused(files):
-    with pytest.raises(SystemExit):
-        port_cli.main(["--wav", str(files / "speech.wav"), "--render", "--device", "cpu"])
+def test_render_is_refused(files, tmp_path):
+    """``--render`` was refused until the renderer was ported; now it writes
+    the stick-figure video of the npz beside it (2 s of audio in 32-frame
+    windows, the synthetic SMPL-X model: the config's file is absent)."""
+    sr = 16000
+    y = np.random.default_rng(2).normal(0, 0.2, 2 * sr)
+    wavfile.write(str(tmp_path / "short.wav"), sr, (y.clip(-1, 1) * 32767).astype(np.int16))
+    out = tmp_path / "render.npz"
+    port_cli.main(["-c", "configs/diffusion_beat2.yaml", "--wav", str(tmp_path / "short.wav"), "--out", str(out),
+                   "--render", "--run-dir", str(tmp_path / "run"), "--device", "cpu",
+                   *overrides(files, "data.pose_length=32", "rvq_ckpts=[]", "data.smplx_model_path=")])
+    videos = [p for p in (out.with_suffix(".mp4"), out.with_suffix(".gif")) if p.exists()]
+    assert len(videos) == 1
+    import imageio
+
+    with np.load(out) as d:
+        assert len(imageio.mimread(videos[0])) == d["poses"].shape[0] == 48

@@ -25,6 +25,7 @@ from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
 from syntalker_tpu_torch.ops import mdm_cuda, quantize_cuda
 from syntalker_tpu_torch.ops.quantize import RVQConfig
 from syntalker_tpu_torch.serving import MotionGenerationService, MotionRequest
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 # the tiny configuration of tests/test_generation.py
 JAX_CFG = JaxMDMConfig(
@@ -84,6 +85,26 @@ def test_fused_loop_sampler_f32_matches_jax(setup):
     sample = generation.make_fused_loop_sampler(tmdm, make_diffusion(steps=8), plan, weights_dtype=torch.float32)
     out = sample(p["aw"], p["ww"], p["seed"], p["noise"])
     assert np.abs(out.numpy() - ref).max() < ABS
+
+
+def test_sample_windows_fused_loop_matches_jax(setup):
+    """The one-shot wrapper (K1's plain version, f32 weights) against JAX's
+    ``sample_windows_lean`` within 1e-5; a sampler passed as ``fused=`` is
+    the one that runs, and gives the same latents again."""
+    tmdm, plan, p, ref = setup
+    diffusion = make_diffusion(steps=8)
+    args = (p["aw"], p["ww"], p["seed"], p["noise"])
+    out = generation.sample_windows_fused_loop(tmdm, diffusion, plan, *args, weights_dtype=torch.float32)
+    assert out.shape == ref.shape and np.abs(out.numpy() - ref).max() < 1e-5
+    calls = []
+    sampler = generation.make_fused_loop_sampler(tmdm, diffusion, plan, weights_dtype=torch.float32)
+
+    def fused(*a):
+        calls.append(len(a))
+        return sampler(*a)
+
+    again = generation.sample_windows_fused_loop(None, None, plan, *args, fused=fused)
+    assert calls == [4] and torch.equal(again, out)
 
 
 def test_fused_block_sampler_f32_matches_jax(setup):

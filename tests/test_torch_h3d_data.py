@@ -30,6 +30,7 @@ from syntalker_tpu_torch.data import word_bert as PW
 from syntalker_tpu_torch.data.joints import JOINT_NAMES
 from syntalker_tpu_torch.data.textgrid import Interval
 from syntalker_tpu_torch.ops.smplx import PARENTS
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 
 @pytest.mark.parametrize("width", (156, 170))

@@ -73,6 +73,7 @@ from syntalker_tpu_torch.ops.quantize import RVQConfig
 from syntalker_tpu_torch.ops.smplx import synthetic_smplx_model
 
 from test_torch_streaming import jax_window_noise
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 MDM_KW = dict(latent_dim=32, ff_size=64, num_layers=1, num_heads=2, rope_heads=4, audio_feat_dim=16, word_feat_dim=16,
               word_embed_dim=8, vocab_size=64, use_prompt=True, prompt_dim=16)

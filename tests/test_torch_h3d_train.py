@@ -62,6 +62,7 @@ from syntalker_tpu_torch.train.diffusion_trainer import DiffusionDraws
 from test_torch_text import perturbed
 from test_torch_train_loop import TINY_MDM, TINY_RVQ, configs, key_chain, record
 from test_torch_train_rvq import assert_trees_close, close, jax_opt_dict, jax_rvq_draws
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 LOSS_REL, PARAM_REL, PROMPT_REL = 1e-4, 1e-4, 1e-5
 STEPS = 3

@@ -1,9 +1,10 @@
 """The port stands alone: importing ``syntalker_tpu_torch`` (every
 submodule, the train steps, optimizers, trainers, data path, registries,
-the evaluation and text-control slices and the train and evaluation CLIs
-included) and
+the evaluation and text-control slices, the train and evaluation CLIs, the
+checkpoint converters, the renderer and the demo included) and
 ``chip_smoke.py`` pulls in neither JAX, flax, optax, orbax nor the JAX
-package, nor does running those CLIs' ``--help``; entry points refuse to fall back to the CPU silently, and the
+package, nor does running those CLIs' ``--help``; the renderer's worker
+processes import no torch; entry points refuse to fall back to the CPU silently, and the
 ctypes signatures agree with the C entry points of the CUDA sources."""
 
 import ast
@@ -27,12 +28,14 @@ from syntalker_tpu_torch.eval.harness_h3d import H3DEvaluator
 from syntalker_tpu_torch.eval.t2m import T2MEvalConfig, T2MEvaluator
 from syntalker_tpu_torch.models.tmr import TextPipeline, TMRConfig, load_tmr_motion
 from syntalker_tpu_torch.ops import _build
+from syntalker_tpu_torch.render import render_npz
 from syntalker_tpu_torch.serving import MotionGenerationService
 from syntalker_tpu_torch.streaming import StreamingMotionSession
 from syntalker_tpu_torch.bridge import rvq_state_from_flax
 from syntalker_tpu_torch.train import diffusion_trainer, optim, rvq_trainer
 from syntalker_tpu_torch.data.cache import BeatCache, DeviceDataset
 from syntalker_tpu_torch.train.loop import DiffusionTrainer, RVQTrainer, load_rvq_stack
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "syntalker_tpu_torch"
@@ -82,7 +85,7 @@ def test_text_control_modules_are_walked():
         assert (PKG / rel).exists(), rel
 
 
-@pytest.mark.parametrize("cli", ("train", "train_rvq", "test", "train_aux", "test_h3d"))
+@pytest.mark.parametrize("cli", ("train", "train_rvq", "test", "train_aux", "test_h3d", "demo"))
 def test_train_cli_help_pulls_in_no_jax(cli):
     code = ("import json, runpy, sys\n"
             f"sys.argv = ['{cli}', '--help']\n"
@@ -108,8 +111,17 @@ def test_import_pulls_in_no_jax():
     walked = set(json.loads(imported))
     for name in ("ops.smplx", "data.h3d", "models.skeleton", "models.eval_vae", "eval.metrics", "eval.harness",
                  "train.ae_trainer", "cli.test", "cli.train_aux", "eval.t2m", "eval.harness_h3d", "cli.test_h3d",
-                 "data.amass", "data.word_bert", "data.bvh"):
+                 "data.amass", "data.word_bert", "data.bvh", "convert", "render", "cli.demo"):
         assert f"syntalker_tpu_torch.{name}" in walked, name
+
+
+def test_render_workers_import_no_torch():
+    """What a spawned render worker imports to unpickle its job."""
+    code = "import json, sys\nimport syntalker_tpu_torch.render\nprint(json.dumps('torch' in sys.modules))\n"
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "false"
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"], ids=lambda p: p.name)
@@ -148,6 +160,8 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
             trainer(tiny, BeatCache("unused"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceDataset(BeatCache("unused"), ("pose",), 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_npz("missing.npz", "missing")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T2MEvaluator(T2MEvalConfig(hidden=4, dim_movement=4, dim_coemb=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -11,6 +11,7 @@ from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.models.denoiser import Conditioning, MDMConfig, build_mdm
 from syntalker_tpu_torch.ops import mdm_cuda as E
 from syntalker_tpu_torch.ops import quantize_cuda as K3
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 SMALL = MDMConfig(latent_total_dim=48, latent_dim=64, ff_size=128, num_layers=2, num_heads=4, rope_heads=4,
                   audio_feat_dim=16, word_feat_dim=16, word_embed_dim=8, vocab_size=32)

@@ -20,6 +20,7 @@ from syntalker_tpu_torch.models.denoiser import Conditioning
 from syntalker_tpu_torch.ops import mdm_cuda
 
 from test_torch_denoiser import JAX_CFG, rel_err, torch_cfg
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 # bf16 weights and matmul inputs on both sides; the Pallas kernels use a
 # tanh GELU and a bf16 RoPE permutation matmul where the port is exact

@@ -10,6 +10,7 @@ import pytest
 from syntalker_tpu.data import audio as JA
 from syntalker_tpu_torch import native
 from syntalker_tpu_torch.data import audio as A
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 SECONDS = (1.0, 6.3, 16.0)
 

@@ -25,6 +25,7 @@ from syntalker_tpu_torch.ops import mdm_cuda
 
 from test_torch_denoiser import JAX_CFG as BASE_CFG
 from test_torch_denoiser import rel_err, torch_cfg
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 REL = 1e-5  # f32 against f32: only summation order differs
 NORMS = ("group", "batch", "none")

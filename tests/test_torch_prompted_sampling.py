@@ -28,6 +28,7 @@ from test_torch_generation import ABS
 from test_torch_generation import JAX_CFG as BASE_CFG
 from test_torch_generation import _service as service_on_cpu
 from test_torch_prompted import perturb
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 P = S = 8  # prompt and style widths
 JAX_CFG = dataclasses.replace(BASE_CFG, use_prompt=True, prompt_dim=P, use_motionclip=True, style_dim=S,

@@ -22,6 +22,7 @@ from syntalker_tpu_torch.data.stats import PoseStats
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig
 from syntalker_tpu_torch.ops import quantize, quantize_cuda
 from syntalker_tpu_torch.ops import rotations as R
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 Q_CFG = quantize.RVQConfig(num_quantizers=4, nb_code=64, code_dim=128)
 JQ_CFG = JQ.RVQConfig(num_quantizers=4, nb_code=64, code_dim=128)

@@ -16,6 +16,7 @@ from syntalker_tpu.models.rvqvae import create_rvqvae
 from syntalker_tpu_torch import bridge
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig
 from syntalker_tpu_torch.ops.quantize import code_distances
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 PARTS = (("upper", 78), ("hands", 180), ("lower", 57))
 REL = 1e-5  # f32 against f32: only summation order differs

@@ -26,6 +26,7 @@ from syntalker_tpu_torch.data import h3d as PH
 from syntalker_tpu_torch.data import stats as PST
 from syntalker_tpu_torch.data.synthetic import make_corpus
 from syntalker_tpu_torch.ops import smplx as PS
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 ATOL = 1e-5
 H3D_ATOL = 1e-4

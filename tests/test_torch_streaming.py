@@ -41,6 +41,7 @@ from syntalker_tpu_torch.ops.rotations import rotation_6d_to_matrix
 from syntalker_tpu_torch.streaming import StreamingMotionSession, _value_fingerprint
 
 from test_torch_prompted import perturb
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 # the stack of tests/test_streaming.py: latent 32, 2 layers, ddim4, RVQ width 32
 JAX_CFG = JaxMDMConfig(latent_dim=32, ff_size=64, num_layers=2, num_heads=2, rope_heads=4, audio_feat_dim=16,

@@ -30,6 +30,7 @@ from syntalker_tpu_torch.eval import t2m as P
 
 from test_torch_text import perturbed
 from test_torch_train_extras import run_steps
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 METRIC_REL = 1e-6
 TOWER_REL = 1e-5

@@ -31,6 +31,7 @@ from syntalker_tpu_torch.data import vocab as PV
 from syntalker_tpu_torch.eval import t2m as PT2M
 from syntalker_tpu_torch.models import motionclip as PMC
 from syntalker_tpu_torch.models import tmr as PTMR
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parent.parent
 TMR_NPZ = ROOT / "weights" / "t2m_oracle" / "tmr.npz"

@@ -49,6 +49,7 @@ from test_torch_denoiser import torch_cfg
 from test_torch_train_diffusion import batch_of, cfg_for, jax_grads, jax_step_draws, to_torch
 from test_torch_train_rvq import (assert_state_close, assert_trees_close, build_pair, close, configs, jax_opt_dict,
                                   step_both)
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 LR = 1e-3
 

@@ -29,6 +29,7 @@ from syntalker_tpu_torch.train import state as PS
 
 from test_torch_train_loop import TINY_MDM, corpus  # noqa: F401  (the corpus fixture)
 from test_torch_train_rvq import close
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 
 # ---------------------------------------------------------------------------

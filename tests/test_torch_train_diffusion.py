@@ -53,6 +53,7 @@ from syntalker_tpu_torch.train import state as PS
 from test_torch_denoiser import torch_cfg
 from test_torch_prompted import P, S, jax_cfg, perturb
 from test_torch_train_rvq import assert_trees_close, close
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 LR = 1e-3
 SGD_LR = 1e4

@@ -43,6 +43,7 @@ from syntalker_tpu_torch.train import optim as PO
 
 from test_torch_text import SMALL_TMR, _seq, perturbed
 from test_torch_train_rvq import assert_trees_close, close
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 LR = 1e-3
 SGD_LR = 1e4

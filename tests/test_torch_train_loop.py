@@ -57,6 +57,7 @@ from syntalker_tpu_torch.train.diffusion_trainer import DiffusionDraws
 
 from test_torch_train_diffusion import jax_step_draws
 from test_torch_train_rvq import assert_trees_close, close, jax_opt_dict, jax_rvq_draws
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 LOSS_REL, PARAM_REL = 1e-4, 1e-4
 STEPS = 3

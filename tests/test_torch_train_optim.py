@@ -14,6 +14,7 @@ import torch
 
 from syntalker_tpu.train import state as JS
 from syntalker_tpu_torch.train import optim as PO
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 RTOL, ATOL = 1e-5, 1e-7
 SHAPES = {"a": (3, 4), "b": (5,), "c": (2, 3, 2)}

@@ -35,6 +35,7 @@ from syntalker_tpu_torch.ops import quantize as PQ
 from syntalker_tpu_torch.train import optim as PO
 from syntalker_tpu_torch.train import state as PS
 from syntalker_tpu_torch.train.rvq_trainer import RVQLossConfig, make_rvq_train_step
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse: the worker's share of the cores)
 
 REL = 1e-5
 LR = 1e-3

@@ -79,7 +79,19 @@ on the card, the stick figure drawn on the host; exact counts, every K3
 call and K2 at the clip's shape against their plain versions, the warm
 clip), K1 (``sample_windows_fused_loop``) on the converted denoiser
 against the plain f32 sampler, the clip's joints and the converted eval
-models on the card against the CPU. Takes about eight minutes on an H100,
+models on the card against the CPU. ``mesh_serve`` (first, after the build and ``features``) runs
+the service on a ``data=2`` mesh of ``[cuda:0, cuda:0]`` (and over every
+card when there are several) at the serve phase's bucket: a flush through
+K1, one through K2 and a prompted group, each against the unsharded flush
+of the same requests and noise (latents within 1e-6, exact K1/K2/K3
+counts on the warm flush), and K1, K2 and K3 at a shard's shapes against
+their plain versions. ``mesh_train`` runs the beat2 denoiser (batch 40)
+and the upper RVQ-VAE (batch 256) 3 steps each on one device, in an NCCL
+group of one rank a card and in a gloo group of two ranks on the one card
+(``torch.multiprocessing.spawn``, ``file://`` rendezvous): rank 0 against
+the one device (loss, parameters), the EMA codebooks the same bit for bit
+on every rank, and in the gloo group the tensor-parallel forward of
+``MDMConfig()`` at model=2 against the replicated one. Takes about eight minutes on an H100,
 the ~10 s build included (``train_loop`` with ``evaluate`` about three
 and a half, ``h3d`` about one and a half, ``convert_demo`` about one).
 Prints one JSON line per phase, then the ``kernels`` line, the card's name
@@ -140,7 +152,10 @@ from syntalker_tpu_torch.ops import smplx as SMPLX
 from syntalker_tpu_torch.ops.quantize import _tile_to_codebook, code_distances, init_rvq_state
 from syntalker_tpu_torch.serving import MotionGenerationService, MotionRequest
 from syntalker_tpu_torch.streaming import StreamingMotionSession
-from syntalker_tpu_torch.train import optim
+from syntalker_tpu_torch.parallel.collectives import rows_of
+from syntalker_tpu_torch.parallel.mesh import make_mesh, shard_params
+from syntalker_tpu_torch.parallel.multihost import init_multihost
+from syntalker_tpu_torch.train import diffusion_trainer, optim, rvq_trainer
 from syntalker_tpu_torch.train.diffusion_trainer import (DiffusionTrainConfig, draw_diffusion, make_diffusion_train_step,
                                                          make_latent_encoder)
 from syntalker_tpu_torch.train.loop import DiffusionTrainer, rvq_config
@@ -2589,6 +2604,409 @@ def phase_convert_demo(seconds: float = DEMO_SECONDS, overrides=()) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# mesh: the sharded service (one process, a copy of the weights and graphs a device) and data- and
+# tensor-parallel training over torch.distributed (one process a rank)
+
+# a shard against the unsharded service at the shard's batch on the same requests and noise: the same operations
+# at the same shapes, so the same bits. Against the whole bucket in one batch the path is not batch-free: cuBLAS's
+# f32 GEMMs (the seed embedding, the projections around K2) sum in another order at another row count (7.2e-7 on
+# the seed embedding at 8 rows against 4; measured on one H100), which the bf16 rounding of K1's and K2's inputs
+# magnifies over 4 windows x 50 steps, as bf16 against f32 does: held to SAMPLER_REL
+MESH_ABS = 1e-6
+MESH_BATCH = {"diffusion": 40, "rvq": 256}  # the train yamls' global batches
+MESH_STEPS = 3
+MESH_LOSS_RTOL, MESH_PARAM_REL = 2e-4, 1e-5
+TP_ATOL, TP_RTOL = 5e-5, 1e-5  # JAX's tests/test_parallel.py, model=2 against replicated
+MESH_SPAWN_S = 300  # a group that has not finished by then has hung
+# the groups of mesh_train: (backend, ranks (None: one a card), whether it also runs the model=2 forward)
+MESH_GROUPS = (("nccl", None, False), ("gloo", 2, True))
+# the beat2 yaml's denoiser with its blocks and wav encoder in f32: in bf16 a GEMM's rounding at one batch and at a
+# shard's (cuBLAS picks its kernel by the row count) would part the one-device step from the group's by more
+# than the reduction does
+MESH_OVERRIDES = {"diffusion": ["mdm.dtype=float32", "mdm.audio_dtype=float32"], "rvq": ["rvq_train.body_part=upper"]}
+TP_CONFIG = MDMConfig()
+
+
+@contextlib.contextmanager
+def recorded_latents():
+    """The latents every ``generation.decode_latents`` call is given (a
+    sharded flush decodes shard by shard, in data order)."""
+    seen, decode = [], G.decode_latents
+    G.decode_latents = lambda lat, **kw: seen.append(lat.clone()) or decode(lat, **kw)
+    try:
+        yield seen
+    finally:
+        G.decode_latents = decode
+
+
+def mesh_requests(seed: int, prompted: bool):
+    """``requests(seed)``; with ``prompted`` each carries an upper-body
+    prompt and the H3D guidance (one group)."""
+    reqs = requests(seed)
+    rng = np.random.default_rng(seed + 100)
+    for req in reqs if prompted else ():
+        req.prompts, req.guidance = {"upper": rng.standard_normal(256).astype(np.float32)}, dict(GUIDANCE)
+    return reqs
+
+
+@contextlib.contextmanager
+def fed_noise():
+    """``generation.draw_noise`` that returns the tensors put in the queue,
+    in order, and draws from the service's generator when it is empty."""
+    queue, draw = [], G.draw_noise
+    G.draw_noise = lambda plan, batch, gen, device: queue.pop(0) if queue else draw(plan, batch, gen, device)
+    try:
+        yield queue
+    finally:
+        G.draw_noise = draw
+
+
+def mesh_flush(mdm, diffusion, rvq, fused_loop: bool, prompted: bool, mesh, noise, max_batch: int = SERVE_BATCH):
+    """A cold flush (graph captures, the service's own noise), then the warm
+    requests in flushes of ``max_batch``, each on its slice of ``noise``
+    (W, SERVE_BATCH, T, C); returns the real requests' latents, the
+    launches and ms of the warm flushes."""
+    svc = MotionGenerationService(mdm=mdm, diffusion=diffusion, rvq_modules=rvq, stats=identity_pose_stats(),
+                                  max_batch=max_batch, max_seconds=SERVE_SECONDS, fused_loop=fused_loop,
+                                  device=DEV, seed=5, mesh=mesh)
+    timed_flush(svc, mesh_requests(20, prompted)[:max_batch])
+    reqs, latents, ms = mesh_requests(21, prompted), [], 0.0
+    reset_launches()
+    for lo in range(0, len(reqs), max_batch):
+        with recorded_latents() as seen, fed_noise() as queue:
+            queue.append(noise[:, lo : lo + max_batch].contiguous())
+            results, flush_ms, _ = timed_flush(svc, reqs[lo : lo + max_batch])
+        latents.append(torch.cat([t.to(DEV) for t in seen])[: len(results)])  # shards come from every card
+        ms += flush_ms
+        for r in results:
+            assert np.isfinite(r.axis_angle).all() and np.isfinite(r.trans).all()
+    counts = {**mdm_cuda.launches, **quantize_cuda.launches}
+    return {"latents": torch.cat(latents), "launches": counts, "ms": ms, "plan": svc.plan}
+
+
+def mesh_kernels_vs_plain(mdm, diffusion, rvq, b: int) -> dict:
+    """K1, K2 and K3 at a shard's shapes (b samples; K2 also at the prompted
+    group's 3·b) against their plain versions."""
+    g = torch.Generator(DEV).manual_seed(9)
+    cfg, t = mdm.cfg, 32  # a window's latent frames
+    w = mdm_cuda.stack_block_weights(mdm)
+    out = {}
+    for rows in (b, 3 * b):
+        x = torch.randn(rows, t, cfg.latent_dim, generator=g, device=DEV)
+        out[f"k2_b{rows}_rel_err"] = rel_err(mdm_cuda.block_stack(x, w, num_heads=cfg.num_heads),
+                                             mdm_cuda.block_stack_plain(x, w, num_heads=cfg.num_heads))
+        assert out[f"k2_b{rows}_rel_err"] < K2_REL, out
+    fused = mdm_cuda.FusedDDIMWindow(mdm, diffusion)
+    cond = Conditioning(at_feat=torch.randn(b, t, cfg.audio_feat_dim, generator=g, device=DEV),
+                        seed_emb=torch.randn(b, cfg.latent_dim, generator=g, device=DEV))
+    x = torch.randn(b, t, J.LATENT_DIM, generator=g, device=DEV)
+    out[f"k1_b{b}_rel_err"] = rel_err(fused(x, cond), fused.plain(x, cond))
+    assert out[f"k1_b{b}_rel_err"] < K1_REL, out
+    codebooks = rvq["upper"][1].codebook
+    rows = torch.randn(b * 116, codebooks.shape[-1], generator=g, device=DEV)
+    out[f"k3_rows{b * 116}"] = rvq_check(rows, codebooks, *quantize_cuda.rvq_encode_fused(rows, codebooks))
+    return out
+
+
+def phase_mesh_serve(mdm, diffusion, rvq) -> dict:
+    """The service on a data=2 mesh of [cuda:0, cuda:0] (and over every
+    card when there are several): one flush each through K1, K2 and a
+    prompted group, on fixed noise; each against the unsharded service at
+    a shard's batch flushing the shards' requests and noise in turn (the
+    same bits) and against the whole bucket in one batch (SAMPLER_REL);
+    exact counts on the warm sharded flush."""
+    layers, steps = mdm.cfg.num_layers, diffusion.num_steps
+    meshes = {"one_card": make_mesh(2, 1, devices=[DEV, DEV])}
+    if torch.cuda.device_count() > 1:
+        meshes["cards"] = make_mesh(devices=[torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    out = {"phase": "mesh_serve", "card": card_name_and_power_limit(), "batch": SERVE_BATCH, "routes": {},
+           "kernels_vs_plain": mesh_kernels_vs_plain(mdm, diffusion, rvq, SERVE_BATCH // 2)}
+    rvq_kernels = quantize_cuda.rvq_kernel_launches(6)
+    plan = G.plan_windows(int(SERVE_SECONDS * 30))
+    noise = torch.randn(plan.num_windows, SERVE_BATCH, plan.latent_window, J.LATENT_DIM,
+                        generator=torch.Generator(DEV).manual_seed(22), device=DEV)
+    for route, fused_loop, prompted in (("k1", True, False), ("k2", False, False), ("prompted", True, True)):
+        plain = mesh_flush(mdm, diffusion, rvq, fused_loop, prompted, None, noise)
+        res = {"unsharded_ms": plain["ms"]}
+        for name, mesh in meshes.items():
+            n = mesh.shape["data"]
+            got = mesh_flush(mdm, diffusion, rvq, fused_loop, prompted, mesh, noise)
+            shard = mesh_flush(mdm, diffusion, rvq, fused_loop, prompted, None, noise, max_batch=SERVE_BATCH // n)
+            err = (got["latents"] - shard["latents"]).abs().max().item()
+            want = {"ddim_window": n * plan.num_windows * mdm_cuda.window_launches(layers, steps)
+                    if route == "k1" else 0,
+                    "block_stack": 0 if route == "k1" else n * plan.num_windows * steps * mdm_cuda.block_launches(layers),
+                    "rvq_encode": 3 * n}
+            res[name] = {"data": n, "ms": got["ms"], "shard_batch_service_ms": shard["ms"],
+                         "latents_max_abs_err_vs_shard_batch": err,
+                         "latents_rel_err_vs_whole_batch": rel_err(got["latents"], plain["latents"]),
+                         "launches": got["launches"], "rvq_kernels": got["launches"]["rvq_encode"] * rvq_kernels}
+            assert got["latents"].shape == plain["latents"].shape, (got["latents"].shape, plain["latents"].shape)
+            assert err <= MESH_ABS, (route, name, err)
+            assert res[name]["latents_rel_err_vs_whole_batch"] <= SAMPLER_REL, (route, name, res[name])
+            assert got["launches"] == want, (route, name, got["launches"], want)
+        out["routes"][route] = res
+    emit(out)
+    return out
+
+
+def mesh_diffusion(mesh=None, device=None, steps: int = MESH_STEPS) -> dict:
+    """Three steps of the beat2 denoiser (its yaml with MESH_OVERRIDES: Adam
+    behind the clip) at the global batch of 40, this rank's rows of each
+    under ``mesh`` (its data axis); seeded weights and draws, batches from
+    seeded numpy."""
+    cfg, device = load_config(BEAT2_CONFIG, MESH_OVERRIDES["diffusion"]), device or DEV
+    mdm = build_mdm(cfg.mdm, seed=TRAIN_SEED, device=device)
+    tx, grads = first_grads(optim.make_diffusion_optimizer(cfg.train.lr, cfg.train.grad_clip))
+    state = create_train_state(mdm, tx, torch.Generator(device).manual_seed(TRAIN_SEED))
+    step = make_diffusion_train_step(mdm, make_diffusion(steps=cfg.diffusion.steps), tx,
+                                     DiffusionTrainConfig(cfg.pre_frames, cfg.latent_scale), mesh=mesh)
+    b, frames, m = MESH_BATCH["diffusion"], cfg.data.pose_length, cfg.mdm
+
+    def batch(i):
+        g = np.random.default_rng(TRAIN_SEED + i)
+        return {"latent_in": g.standard_normal((b, frames // 4, m.latent_total_dim), np.float32),
+                "audio": (0.1 * g.standard_normal((b, round(16000 / 30 * frames), 2))).astype(np.float32),
+                "word": g.integers(0, m.vocab_size, (b, frames))}
+
+    return {**mesh_steps(step, state, [batch(i) for i in range(steps)], mesh, device, diffusion_trainer),
+            "grads": grads}
+
+
+
+def mesh_rvq(mesh=None, device=None) -> dict:
+    """Three steps of the upper RVQ-VAE of ``configs/rvq_beat2.yaml`` at the
+    global batch of 256 (the lazy init first), as :func:`mesh_diffusion`."""
+    cfg, device = load_config(RVQ_CONFIG, MESH_OVERRIDES["rvq"]), device or DEV
+    rt, rcfg = cfg.rvq_train, rvq_config(cfg, "upper")
+    tx, grads = first_grads(optim.make_rvq_optimizer(rt.lr, rt.warmup_iters, rt.milestones, rt.gamma))
+    module = build_rvqvae(rcfg, seed=TRAIN_SEED, device=device)[0]
+    state = create_train_state(module, tx, torch.Generator(device).manual_seed(TRAIN_SEED),
+                               quantizer_state=init_rvq_state(rcfg.quantizer, device))
+    step = make_rvq_train_step(module, tx, RVQLossConfig(commit_weight=rt.commit_weight), mesh=mesh)
+    batches = [np.random.default_rng(TRAIN_SEED + 10 + i).standard_normal(
+        (MESH_BATCH["rvq"], rt.window, rcfg.input_dim), np.float32) for i in range(MESH_STEPS)]
+    out = mesh_steps(step, state, batches, mesh, device, rvq_trainer)
+    out["codebook"] = state.quantizer_state.codebook.cpu()
+    out["grads"] = grads
+    return out
+
+
+def first_grads(tx):
+    """``tx`` that also keeps (on the host) the gradients it is given first,
+    after the data axis's all-reduce, by parameter name."""
+    first = {}
+
+    def update(grads, opt_state, params=None):
+        if not first:
+            first.update({k: g.detach().float().cpu() for k, g in grads.items()})
+        return tx.update(grads, opt_state, params)
+
+    return optim.GradientTransformation(tx.init, update), first
+
+
+def mesh_steps(step, state, batches, mesh, device, trainer_module) -> dict:
+    """Run the steps on this rank's shards, backward included in full f32
+    (TF32 convolution gradients differ by ~1e-4 between cuDNN's algorithms
+    at one batch and at a shard's: 1.62e-4 on the denoiser's first gradient,
+    measured on one H100; Adam turns that into parameters 2.5e-5 apart):
+    losses, the final parameters, step ms (host clock around a
+    synchronized step), the gradient all-reduce's ms (synchronized around
+    it) and the peak memory."""
+    reduce, reduce_ms = trainer_module.all_reduce_mean_, []
+
+    def timed_reduce(tensors, axis):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(tensors, axis)
+        torch.cuda.synchronize()
+        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    trainer_module.all_reduce_mean_ = timed_reduce
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        for batch in batches:
+            local = rank_rows(batch, None if mesh is None else mesh.data, device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with full_f32():
+                state, metrics = step(state, local)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(metrics["predict_x0_loss" if "predict_x0_loss" in metrics else "loss"]))
+    finally:
+        trainer_module.all_reduce_mean_ = reduce
+    return {"loss": losses, "params": {k: v.detach().cpu() for k, v in state.params.items()}, "step_ms": step_ms,
+            "allreduce_ms": reduce_ms, "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 2**30}
+
+
+def rank_rows(batch, axis, device):
+    """The rows of a global batch (a dict or one array) that the rank at
+    ``axis`` trains on, on ``device``; all of them without an axis."""
+    if isinstance(batch, dict):
+        return {k: rows_of(torch.as_tensor(v), axis).to(device) for k, v in batch.items()}
+    return rows_of(torch.as_tensor(batch), axis).to(device)
+
+
+@torch.no_grad()
+def tp_forward(world: int, device) -> dict:
+    """The TP_CONFIG (full MDMConfig()) denoise replicated, then under
+    shard_params at model=world (whole heads of q, k, v a rank; one
+    all-reduce after proj and after fc2)."""
+    mdm = build_mdm(TP_CONFIG, seed=0, device=device)
+    g = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    x_t, seed = t(g.standard_normal((2, 32, 1536))), t(g.standard_normal((2, 4, 1536)))
+    audio = t(0.1 * g.standard_normal((2, 533 * 128, 2)))
+    word = torch.as_tensor(g.integers(0, TP_CONFIG.vocab_size, (2, 128)), device=device)
+    steps = torch.tensor([7, 431], device=device)
+    ref = mdm.denoise(x_t, steps, mdm.encode_cond(audio, word, seed))
+    shard_params(mdm, make_mesh(1, world, devices=[device] * world))
+    out = mdm.denoise(x_t, steps, mdm.encode_cond(audio, word, seed))
+    ok = bool(torch.allclose(out, ref, atol=TP_ATOL, rtol=TP_RTOL))
+    return {"max_abs_err": (out - ref).abs().max().item(), "allclose": ok, "heads_a_rank": mdm.blocks[0].num_heads}
+
+
+def rank_devices(world: int) -> list:
+    """Rank r's card: r modulo the cards (two gloo ranks share the one)."""
+    return [torch.device("cuda", r % torch.cuda.device_count()) for r in range(world)]
+
+
+def mesh_train_worker(rank: int, world: int, backend: str, tp: bool, rendezvous: str, out_dir: str) -> None:
+    """One rank of a group: the two models' steps on its shards, and with
+    ``tp`` the tensor-parallel forward; saves ``<out_dir>/rank<r>.pt``."""
+    if world > 1:
+        init_multihost(f"file://{rendezvous}", world, rank, backend=backend)
+    else:  # init_multihost starts no group for one process, as JAX's; a group of one still proves the backend
+        torch.distributed.init_process_group(backend, init_method=f"file://{rendezvous}", world_size=1, rank=0)
+    mesh = make_mesh(world, 1, devices=rank_devices(world))
+    out = {"backend": torch.distributed.get_backend(), "device": str(mesh.device),
+           "diffusion": mesh_diffusion(mesh, mesh.device), "rvq": mesh_rvq(mesh, mesh.device)}
+    if tp:
+        out["tp"] = tp_forward(world, mesh.device)
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def run_group(world: int, backend: str, tp: bool, d: Path) -> list:
+    d.mkdir(parents=True, exist_ok=True)
+    ctx = torch.multiprocessing.spawn(mesh_train_worker, args=(world, backend, tp, str(d / "rendezvous"), str(d)),
+                                      nprocs=world, join=False)
+    deadline = time.monotonic() + MESH_SPAWN_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise RuntimeError(f"the {backend} group of {world} did not finish in {MESH_SPAWN_S} s")
+    return [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+# a group's first gradient against one device's on the whole batch: f32 sums in another order
+MESH_GRAD_REL = 1e-5
+# the denoiser's wav encoder (its convolutions and BatchNorms): its f32 weight gradients sum over batch x 68,224
+# samples, and cuDNN sums them in another order at 20 rows than at 40 (2e-3 apart on one convolution's, 1.5e-4
+# over the whole gradient; one device against itself 7.7e-8; measured on one H100). Held on every other tensor,
+# reported on these
+SEQUENCE_SUMS = "wav_encoder."
+# Adam steps an element by about its whole rate in the direction of its gradient's sign, so an element whose first
+# gradient is within f32 noise of zero (a convolution's bias in front of a norm; an embedding row no word used; a
+# gradient a reorder of the sums can flip) moves apart in one device and in a group; parameters are held where the
+# one-device first gradient is above this fraction of its tensor's largest, the rest counted (as the repo's train
+# tests compare Adam's parameters only where the gradient is far above its noise)
+NOISE_GRAD = 1e-3
+
+
+def tree_rel(got: dict, ref: dict, masks=None, names=None) -> float:
+    """|got - ref| / |ref| over the named tensors (all by default)
+    together, over the masked elements when ``masks`` are given."""
+    num = den = 0.0
+    for k in ref if names is None else names:
+        d, r = got[k].float() - ref[k].float(), ref[k].float()
+        if masks is not None:
+            d, r = d[masks[k]], r[masks[k]]
+        num, den = num + float(d.pow(2).sum()), den + float(r.pow(2).sum())
+    return (num / den) ** 0.5
+
+
+def phase_mesh_train() -> dict:
+    """The beat2 denoiser (batch 40) and the upper RVQ-VAE (batch 256), 3
+    steps each from the same seeded state and global batches: on one
+    device, in an NCCL group of one rank a card, and in a gloo group of two
+    ranks on the one card (CUDA tensors). Held: every rank the same bit for
+    bit (parameters, EMA codebooks); rank 0's loss, first gradient and
+    parameters against the one device (outside the wav encoder, see
+    ``SEQUENCE_SUMS``, which is reported); the tensor-parallel forward at
+    model=2 in the gloo group."""
+    one = {"diffusion": mesh_diffusion(), "rvq": mesh_rvq()}
+    torch.cuda.empty_cache()  # the ranks share the card: hand its cached blocks back
+    out = {"phase": "mesh_train", "card": card_name_and_power_limit(),
+           "parent_allocated_gb_at_spawn": torch.cuda.memory_allocated() / 2**30,
+           "one_device_ms": {k: v["step_ms"] for k, v in one.items()},
+           "one_device_peak_memory_gb": {k: v["peak_memory_gb"] for k, v in one.items()}, "groups": {}}
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend, world, tp in MESH_GROUPS:
+            world = world or torch.cuda.device_count()
+            ranks = run_group(world, backend, tp, Path(tmp) / backend)
+            res = {"world": world, "backend": ranks[0]["backend"], "devices": [r["device"] for r in ranks]}
+            for model in ("diffusion", "rvq"):
+                got, ref = ranks[0][model], one[model]
+                masks = {k: g.abs() > NOISE_GRAD * g.abs().max() for k, g in ref["grads"].items()}
+                held_names = [k for k in ref["grads"] if not k.startswith(SEQUENCE_SUMS)]
+                summed = [k for k in ref["grads"] if k.startswith(SEQUENCE_SUMS)]
+                step_ms, reduce_ms = np.mean(got["step_ms"][1:]), np.mean(got["allreduce_ms"][1:] or [0.0])
+                res[model] = {"loss": got["loss"],
+                              "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(got["loss"], ref["loss"])),
+                              "grads_rel_err": tree_rel(got["grads"], ref["grads"], names=held_names),
+                              "params_rel_err": tree_rel(got["params"], ref["params"], masks, held_names),
+                              "params_rel_err_all": tree_rel(got["params"], ref["params"]),
+                              "params_held": sum(int(masks[k].sum()) for k in held_names),
+                              "params_noise_gradient": sum(int((~masks[k]).sum()) for k in held_names),
+                              "step_ms": got["step_ms"], "allreduce_ms": got["allreduce_ms"],
+                              "peak_memory_gb": [r[model]["peak_memory_gb"] for r in ranks],
+                              "allreduce_share": float(reduce_ms / step_ms),
+                              "ranks_equal": all(torch.equal(r[model]["params"][k], v) for r in ranks[1:]
+                                                 for k, v in got["params"].items())}
+                r = res[model]
+                if summed:
+                    r["sequence_sums"] = {"grads_rel_err": tree_rel(got["grads"], ref["grads"], names=summed),
+                                          "params_rel_err": tree_rel(got["params"], ref["params"], names=summed)}
+                held = {"loss": r["loss_rel_err"] <= MESH_LOSS_RTOL, "ranks_equal": r["ranks_equal"],
+                        "grads": r["grads_rel_err"] <= MESH_GRAD_REL, "params": r["params_rel_err"] <= MESH_PARAM_REL}
+                failures += [f"{backend}{world} {model} {k}" for k, ok in held.items() if not ok]
+            cb = [r["rvq"]["codebook"] for r in ranks]
+            if not all(torch.equal(c, cb[0]) for c in cb[1:]):
+                failures.append(f"{backend}{world} EMA codebooks differ across ranks")
+            res["rvq"]["codebook_vs_one_device_max_abs"] = (cb[0] - one["rvq"]["codebook"]).abs().max().item()
+            if tp:
+                res["tp"] = [r["tp"] for r in ranks]
+                if not all(t["allclose"] and t["heads_a_rank"] == 2 for t in res["tp"]):
+                    failures.append(f"{backend}{world} tensor-parallel forward")
+            out["groups"][f"{backend}{world}"] = res
+    out["failures"] = failures
+    emit(out)
+    assert not failures, failures
+    return out
+
+
+def phase_mesh(diffusion=None, rvq=None) -> dict:
+    """``mesh_serve`` on ``MDMConfig(use_prompt=True)`` (the unprompted
+    routes read no prompt, as ``MDMConfig()``'s), then ``mesh_train``;
+    returns ``mesh_serve``'s result. Alone:
+    ``python -c "import chip_smoke as C; C.phase_build(); C.phase_mesh()"``."""
+    if diffusion is None:
+        diffusion = make_diffusion(steps=1000, timestep_respacing="ddim50")
+    if rvq is None:
+        rvq = {part: build_rvqvae(RVQVAEConfig(input_dim=dim), seed=10 + i, device=DEV)
+               for i, (part, dim) in enumerate((("upper", 78), ("hands", 180), ("lower", 57)))}
+    out = phase_mesh_serve(build_mdm(MDMConfig(use_prompt=True), seed=0, device=DEV), diffusion, rvq)
+    phase_mesh_train()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2603,6 +3021,8 @@ def main() -> int:
     rvq = {part: build_rvqvae(RVQVAEConfig(input_dim=dim), seed=10 + i, device=DEV)
            for i, (part, dim) in enumerate((("upper", 78), ("hands", 180), ("lower", 57)))}
 
+    # first, while the card holds little else: mesh_train's two ranks of the RVQ-VAE take ~33 GB each
+    mesh = phase_mesh(diffusion, rvq)
     phase_gemm(cfg)
     k2 = phase_block_stack(mdm, cfg)
     k1 = phase_ddim_window(mdm, cfg, diffusion)
@@ -2638,6 +3058,9 @@ def main() -> int:
     src = "syntalker_tpu_torch/csrc/"
     k3_row = k3[SERVE_BATCH * 116]
     rvq_kernels = quantize_cuda.rvq_kernel_launches(6)
+    mesh_launches = {name: sum(route["one_card"]["launches"][name] if name != "rvq_encode" else
+                               route["one_card"]["rvq_kernels"] for route in mesh["routes"].values())
+                     for name in ("ddim_window", "block_stack", "rvq_encode")}
     rows = [  # (name, source, TPU kernel, timings, kernels launched on the main path, on the prompted flush,
         #         on the stream (the prompted stream for K2) and on the encode path, (error, tolerance))
         ("ddim_window", src + "mdm_block.cu", "syntalker_tpu/ops/mdm_pallas.py:312", k1[SERVE_BATCH],
@@ -2660,7 +3083,7 @@ def main() -> int:
                                for k, v in gen.items()},
          "trained_stream_launches": trained_stream_launches[name if name != "rvq_encode" else "rvq_kernels"],
          "evaluate_launches": evaluate_launches[name], "h3d_eval_launches": h3d_launches[name],
-         "convert_demo_launches": demo_launches[name],
+         "convert_demo_launches": demo_launches[name], "mesh_launches": mesh_launches[name],
          "error_vs_tol": err}
         for name, source, replaces, r, launches, prompted, streamed, encoded, err in rows
     ]})

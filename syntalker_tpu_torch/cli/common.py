@@ -11,7 +11,10 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+import torch.distributed as dist
+
 from syntalker_tpu_torch.config import ExperimentConfig, load_config
+from syntalker_tpu_torch.parallel.multihost import group_started, is_primary
 from syntalker_tpu_torch.ops.smplx import load_smplx_npz, synthetic_smplx_model
 from syntalker_tpu_torch.utils.tracking import setup_logging
 
@@ -38,3 +41,15 @@ def load_smplx_if_available(cfg: ExperimentConfig, device=None):
     if p and Path(p).exists():
         return load_smplx_npz(p, device=device)
     return None
+
+
+def primary_first(build):
+    """``build()`` on the primary rank, then, once it is done, on the
+    others (which reuse what it wrote: a window cache); just ``build()``
+    without a process group."""
+    out = build() if is_primary() else None
+    if group_started():
+        dist.barrier()
+        if not is_primary():
+            out = build()
+    return out

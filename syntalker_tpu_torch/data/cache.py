@@ -37,6 +37,7 @@ from syntalker_tpu_torch.data.textgrid import words_tier
 from syntalker_tpu_torch.data.vocab import Vocab, words_to_frame_ids
 from syntalker_tpu_torch.device import full_f32, resolve_device
 from syntalker_tpu_torch.ops.smplx import foot_contacts
+from syntalker_tpu_torch.parallel.collectives import exact_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -360,19 +361,28 @@ class DeviceDataset:
 
     The windows are stacked once on the host (one sample at a time into
     preallocated arrays, so the corpus is never held twice) and copied to
-    ``device``: ``placement`` is ``"replicated"``, the whole set on the one
-    device, when its bytes fit ``memory_budget_bytes`` (default
-    :func:`default_memory_budget`); above it the constructor raises
-    :class:`DatasetTooLargeError` and the trainers stream host batches
-    instead. Sharding the set over several cards waits for the port's
-    multi-GPU slice.
+    ``device``. ``placement`` is decided from the set's bytes against a
+    device's ``memory_budget_bytes`` (default :func:`default_memory_budget`),
+    in JAX's three tiers:
+
+    1. ``"replicated"``: the set fits one device; the whole set is on it
+       (on every rank's device under a process group).
+    2. ``"data_sharded"``: it does not, but a 1/``data`` slice of it fits,
+       and ``mesh`` is a process-group mesh with ``data > 1``: each rank of
+       the data axis holds its contiguous slice of the windows (the set
+       padded to a multiple of ``data`` with copies of its first windows,
+       which no index reaches). A batch's rows are gathered across the
+       data axis by an all-reduce of zero-padded buffers, bit for bit.
+    3. Otherwise the constructor raises :class:`DatasetTooLargeError` and
+       the trainers stream host batches instead.
 
     ``epoch_indices`` gives the int32 index vectors of an epoch, the same as
     ``BatchLoader``'s batches (same permutation, drop-last); ``batch(idx)``
-    copies one of them to the device and gathers the batch there."""
+    copies one of them to the device and gathers the batch there: the
+    global batch, on every rank of a mesh, whatever the placement."""
 
     def __init__(self, cache: BeatCache, keys, batch_size: int, *, seed=0, shuffle=True, device=None,
-                 memory_budget_bytes=None):
+                 memory_budget_bytes=None, mesh=None):
         self.batch_size = batch_size
         self.seed = seed
         self.shuffle = shuffle
@@ -394,12 +404,28 @@ class DeviceDataset:
         if memory_budget_bytes is None:
             memory_budget_bytes = default_memory_budget(self.device)
         self.memory_budget_bytes = memory_budget_bytes
-        if self.nbytes > memory_budget_bytes:
+        n_data = mesh.shape["data"] if mesh is not None and mesh.in_group else 1
+        self._axis = None
+        if self.nbytes <= memory_budget_bytes:
+            self.placement = "replicated"
+            self.arrays = {k: torch.from_numpy(host.pop(k)).to(self.device) for k in keys}
+        elif n_data > 1 and self.nbytes / n_data <= memory_budget_bytes:
+            self.placement = "data_sharded"
+            self._axis = mesh.data
+            pad = (-self.n) % n_data
+            self.shard_rows = (self.n + pad) // n_data
+            lo = self._axis.index * self.shard_rows
+            self.arrays = {}
+            for k in keys:
+                v = host.pop(k)
+                if pad:
+                    v = np.concatenate([v, v[:pad]], axis=0)
+                self.arrays[k] = torch.from_numpy(np.ascontiguousarray(v[lo : lo + self.shard_rows])).to(self.device)
+        else:
             raise DatasetTooLargeError(
-                f"window cache is {self.nbytes / 2**30:.2f} GiB vs a {memory_budget_bytes / 2**30:.2f} GiB "
-                f"budget on {self.device}; stream from the host instead (train.device_data=false)")
-        self.placement = "replicated"
-        self.arrays = {k: torch.from_numpy(host.pop(k)).to(self.device) for k in keys}
+                f"window cache is {self.nbytes / 2**30:.2f} GiB ({self.nbytes / n_data / 2**30:.2f} GiB a device "
+                f"sharded over data={n_data}) vs a {memory_budget_bytes / 2**30:.2f} GiB budget on {self.device}; "
+                "stream from the host instead (train.device_data=false)")
 
     def __len__(self):
         return self.n // self.batch_size
@@ -413,9 +439,24 @@ class DeviceDataset:
             yield order[b * self.batch_size : (b + 1) * self.batch_size].astype(np.int32)
 
     def batch(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
-        """The batch of one index vector, gathered on the device."""
-        i = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
-        return {k: v.index_select(0, i) for k, v in self.arrays.items()}
+        """The batch of one index vector, gathered on the device. Sharded,
+        every rank of the data axis must ask for the same vector: each
+        writes the rows it holds into a zero batch, and the batches are
+        summed over the axis."""
+        idx = np.asarray(idx, np.int64)
+        if self.placement == "replicated":
+            i = torch.from_numpy(idx).to(self.device)
+            return {k: v.index_select(0, i) for k, v in self.arrays.items()}
+        owner, row = np.divmod(idx, self.shard_rows)
+        mine = owner == self._axis.index
+        at = torch.from_numpy(np.nonzero(mine)[0]).to(self.device)
+        src = torch.from_numpy(row[mine]).to(self.device)
+        out = {}
+        for k, v in self.arrays.items():
+            buf = v.new_zeros((len(idx),) + tuple(v.shape[1:]))
+            buf[at] = v.index_select(0, src)
+            out[k] = exact_sum(buf, self._axis)
+        return out
 
 
 class BatchLoader:

@@ -19,7 +19,8 @@ Samplers:
   DDIM path (PyTorch f32, the algebraic folds of the JAX lean sampler);
 - :func:`make_fused_loop_sampler` — unprompted, one K1 call per window;
   one window of it is :func:`fused_window`, and
-  :func:`sample_windows_fused_loop` its one-shot wrapper;
+  :func:`sample_windows_fused_loop` its one-shot wrapper; with ``mesh=``
+  each data shard on its device (:func:`shard_sampler`);
 - :func:`sample_windows_fused` — unprompted, a host loop over steps, one K2
   call per step.
 
@@ -49,6 +50,7 @@ from syntalker_tpu_torch.diffusion.core import sample
 from syntalker_tpu_torch.models.denoiser import MDM, Conditioning, apply_rope, rope_angles
 from syntalker_tpu_torch.ops import rotations as rot
 from syntalker_tpu_torch.ops.mdm_cuda import FusedDDIMWindow, make_fused_denoise, stack_block_weights
+from syntalker_tpu_torch.parallel.mesh import replicate, shard_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,9 +259,22 @@ def fused_window(mdm: MDM, fused: FusedDDIMWindow, at_feat, seed, noise) -> torc
     return fused(noise, Conditioning(at_feat=at_feat, seed_emb=seed_emb))
 
 
-def make_fused_loop_sampler(mdm: MDM, diffusion, plan: WindowPlan, *, weights_dtype=torch.bfloat16):
+def make_fused_loop_sampler(mdm: MDM, diffusion, plan: WindowPlan, *, weights_dtype=torch.bfloat16, mesh=None):
     """Windowed sampler with each window's whole DDIM loop in K1. Returns
-    ``sample(audio_windows, word_windows, init_seed, noise) -> latents``."""
+    ``sample(audio_windows, word_windows, init_seed, noise) -> latents``.
+
+    ``mesh``: the data-parallel form of a single-process
+    :class:`~syntalker_tpu_torch.parallel.mesh.Mesh`. Each distinct device
+    gets its copy of the model and its own K1 (its weights and graphs); the
+    batch axis of the inputs is split into the data shards, and each shard
+    is encoded, sampled window by window with its seed carried, and stitched
+    on its device, with nothing gathered between windows (JAX's ``mesh=``
+    form, whose programs need no collectives). ``sample`` then returns one
+    latents tensor a data shard, in data-axis order, each on its device."""
+    if mesh is not None:
+        samplers = {device: make_fused_loop_sampler(m, diffusion, plan, weights_dtype=weights_dtype)
+                    for device, m in replicate(mdm, mesh).items()}
+        return shard_sampler(mesh, samplers)
     fused = FusedDDIMWindow(mdm, diffusion, weights_dtype=weights_dtype)
     pre = plan.pre_frames
 
@@ -272,6 +287,23 @@ def make_fused_loop_sampler(mdm: MDM, diffusion, plan: WindowPlan, *, weights_dt
             outs.append(x)
             seed = x[:, -pre:]
         return _stitch(outs, pre)
+
+    return sample
+
+
+def shard_sampler(mesh, samplers: dict):
+    """``sample(audio_windows, word_windows, init_seed, noise) -> [latents]``
+    over a mesh's data shards: the window stacks (W, B, ...) split on their
+    batch axis, the seed (B, ...) on its first, each shard run by
+    ``samplers[device]`` on its device (asynchronously: nothing waits for a
+    shard before the next is issued)."""
+
+    @torch.no_grad()
+    def sample(audio_windows, word_windows, init_seed, noise):
+        windows = shard_batch((audio_windows, word_windows, noise), mesh, axis=1)
+        seeds = shard_batch(init_seed, mesh)
+        return [samplers[device](aw, ww, seed, nz)
+                for (_, device), (aw, ww, nz), seed in zip(mesh.data_shards(), windows, seeds)]
 
     return sample
 

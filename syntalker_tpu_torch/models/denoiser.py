@@ -45,6 +45,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from syntalker_tpu_torch.device import full_f32, resolve_device, torch_dtype
+from syntalker_tpu_torch.parallel.collectives import all_reduce_mean, all_reduce_sum, rows_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +114,11 @@ class TrainDraws:
         dp = None if self.drop_path is None else self.drop_path.to(device)
         return TrainDraws({k: v.to(device) for k, v in self.cond.items()}, dp)
 
+    def shard(self, axis) -> "TrainDraws":
+        """The masks of this rank's block of the batch over a data axis."""
+        dp = None if self.drop_path is None else rows_of(self.drop_path, axis, dim=-1)
+        return TrainDraws({k: rows_of(v, axis) for k, v in self.cond.items()}, dp)
+
 
 def draw_train(cfg: MDMConfig, batch: int, generator: torch.Generator, device=None) -> TrainDraws:
     """The masks of one train forward from ``generator``: a Bernoulli per
@@ -141,11 +147,15 @@ class BatchNorm(nn.Module):
     them (the variance is E[x²] - E[x]², biased, clamped at 0), and moves
     the running statistics r <- 0.9·r + 0.1·batch with that biased
     variance (``torch.nn.BatchNorm1d`` would store the unbiased one). In
-    eval mode it normalizes by the running statistics."""
+    eval mode it normalizes by the running statistics. With a ``data_axis``
+    (:func:`~syntalker_tpu_torch.parallel.mesh.attach_data_axis`) the batch
+    is the global one: E[x] and E[x²] are averaged over the axis's ranks,
+    gradient included, so every rank keeps the same running statistics."""
 
     def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.data_axis = None
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -155,8 +165,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
         x = x.float()
-        mean = x.mean((0, 2))
-        var = torch.clamp((x * x).mean((0, 2)) - mean * mean, min=0.0)
+        mean, mean2 = all_reduce_mean(torch.stack([x.mean((0, 2)), (x * x).mean((0, 2))]), self.data_axis)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -275,11 +285,18 @@ class TransformerBlock(nn.Module):
     """Pre-LN block: LayerNorm eps 1e-6, fused qkv without bias (rows
     [q|k|v], head-major), f32 softmax, exact erf GELU MLP. In another
     ``dtype`` than f32, weights and activations are rounded to it, LayerNorm
-    takes its statistics in f32 and the softmax runs in f32, as flax does."""
+    takes its statistics in f32 and the softmax runs in f32, as flax does.
+
+    Under tensor parallelism (:meth:`shard_heads`) the block holds its
+    rank's whole heads of qkv and its rows of fc1 (column-parallel) and its
+    columns of proj and fc2 (row-parallel): their partial products are
+    summed by one all-reduce over the model axis each, then the bias is
+    added."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int):
         super().__init__()
         self.num_heads = num_heads
+        self.tp = None  # the model axis, under tensor parallelism
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.qkv = nn.Linear(dim, 3 * dim, bias=False)
         self.proj = nn.Linear(dim, dim)
@@ -295,18 +312,29 @@ class TransformerBlock(nn.Module):
         def lin(m, h):
             return F.linear(h, m.weight.to(dt), None if m.bias is None else m.bias.to(dt))
 
+        def row_parallel(m, h):
+            if self.tp is None:
+                return lin(m, h)
+            return all_reduce_sum(F.linear(h, m.weight.to(dt)), self.tp) + m.bias.to(dt)
+
         def norm(m, h):
             return F.layer_norm(h.float(), m.normalized_shape, m.weight, m.bias, m.eps).to(dt)
 
-        b, n, c = x.shape
-        hd = c // self.num_heads
+        b, n, _ = x.shape
+        hd = self.qkv.weight.shape[0] // (3 * self.num_heads)
         qkv = lin(self.qkv, norm(self.norm1, x)).reshape(b, n, 3, self.num_heads, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, H, N, hd)
         attn = torch.softmax(((q * hd**-0.5) @ k.transpose(-1, -2)).float(), dim=-1).to(dt)
-        out = (attn @ v).transpose(1, 2).reshape(b, n, c)
-        x = x + drop_path(lin(self.proj, out), None if keep is None else keep[0], rate)
-        h = lin(self.fc2, F.gelu(lin(self.fc1, norm(self.norm2, x))))
+        out = (attn @ v).transpose(1, 2).reshape(b, n, self.num_heads * hd)
+        x = x + drop_path(row_parallel(self.proj, out), None if keep is None else keep[0], rate)
+        h = row_parallel(self.fc2, F.gelu(lin(self.fc1, norm(self.norm2, x))))
         return x + drop_path(h, None if keep is None else keep[1], rate)
+
+    def shard_heads(self, axis) -> None:
+        """Run this rank's ``num_heads / axis.size`` heads, its weights
+        already cut by :func:`~syntalker_tpu_torch.parallel.mesh.shard_params`."""
+        self.num_heads //= axis.size
+        self.tp = axis
 
 
 def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:

@@ -37,6 +37,7 @@ from syntalker_tpu_torch.ops.quantize import (
     rvq_forward,
 )
 from syntalker_tpu_torch.ops.quantize_cuda import rvq_quantize_eval_fused
+from syntalker_tpu_torch.parallel.collectives import rows_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +68,11 @@ class RVQVAEDraws:
 
     def to(self, device) -> "RVQVAEDraws":
         return RVQVAEDraws([None if m is None else m.to(device) for m in self.dropout], self.quantizer.to(device))
+
+    def shard(self, axis) -> "RVQVAEDraws":
+        """The draws of this rank's block of the global batch over a data
+        axis."""
+        return RVQVAEDraws([rows_of(m, axis) for m in self.dropout], self.quantizer.shard(axis))
 
 
 def dropout(h: torch.Tensor, rate: float, keep_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -164,6 +170,7 @@ class RVQVAE(nn.Module):
         self.cfg = cfg
         self.encoder = ConvEncoder(cfg)
         self.decoder = ConvDecoder(cfg)
+        self.data_axis = None  # the quantizer's statistics are the global batch's over this axis
 
     def forward(self, x: torch.Tensor, state: RVQState, *, train: bool = False,
                 draws: Optional[RVQVAEDraws] = None, force_dropout_index: int = -1):
@@ -180,7 +187,7 @@ class RVQVAE(nn.Module):
             z = self.encoder(x, masks)
             out: RVQOutput = rvq_forward(z, state, self.cfg.quantizer, train=train,
                                          draws=draws.quantizer if train else None,
-                                         force_dropout_index=force_dropout_index)
+                                         force_dropout_index=force_dropout_index, data_axis=self.data_axis)
             rec = self.decoder(out.quantized, masks)
         return rec, out
 

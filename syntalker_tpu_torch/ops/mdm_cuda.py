@@ -14,7 +14,8 @@ Counterparts in ``syntalker_tpu/ops/mdm_pallas.py``:
   pass a conditioning without them);
 - ``FusedDDIMWindow`` ↔ ``make_fused_ddim_window`` / ``_ddim_window_kernel``
   (K1): every step of one window's η=0 DDIM loop, the in/out projections,
-  RoPE and the update included.
+  RoPE and the update included; :func:`make_fused_ddim_window` with
+  ``mesh=`` runs one a device on the batch's data shards.
 
 The kernels are in ``csrc/mdm_block.cu`` (its header says what bounds them
 and how they are laid out). Hopper blocks carry no state from one launch to
@@ -68,7 +69,8 @@ def _b(linear):
 
 class StackedWeights(dict):
     """The dict of :func:`stack_block_weights`, with K2's graphs over these
-    tensors beside it: ``plans`` maps (B, T, heads) to a ``_StackPlan``."""
+    tensors beside it: ``plans`` maps (device, B, T, heads) to a
+    ``_StackPlan``."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -306,7 +308,9 @@ class _Replay:
             record(_Launcher(name, device))
         current.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        # a capture stream of this card: torch's default one is made once per process, on whichever card was
+        # current at the first capture, and a capture on it would record none of this card's launches
+        with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(device), capture_error_mode="thread_local"):
             recorder = _Launcher(name, device, count=False)  # built on the capture stream
             record(recorder)
         self.nodes = recorder.launched
@@ -339,17 +343,20 @@ class _StackPlan:
 def block_stack(x: torch.Tensor, w: dict, *, num_heads: int) -> torch.Tensor:
     """K2: (B, T, D) -> (B, T, D) through the stacked blocks. CPU tensors
     take the plain version; CUDA tensors replay the graph of the kernels'
-    launches, recorded once per (B, T) and kept in ``w.plans``."""
+    launches, recorded once per (device, B, T) and kept in ``w.plans``, on
+    the tensor's device whichever card is current."""
     if x.device.type == "cpu":
         return block_stack_plain(x, w, num_heads=num_heads)
     _check_cuda(x, w)
     b, t, d = x.shape
-    plan = w.plans.get((b, t, num_heads))
-    if plan is None:
-        plan = w.plans[b, t, num_heads] = _StackPlan(w, b, t, num_heads, x.device)
-    plan.x.copy_(x.reshape(b * t, d))
-    plan.graph.replay()
-    return plan.x.clone().reshape(b, t, d)
+    with torch.cuda.device(x.device):
+        key = (x.device, b, t, num_heads)
+        plan = w.plans.get(key)
+        if plan is None:
+            plan = w.plans[key] = _StackPlan(w, b, t, num_heads, x.device)
+        plan.x.copy_(x.reshape(b * t, d))
+        plan.graph.replay()
+        return plan.x.clone().reshape(b, t, d)
 
 
 def make_fused_denoise(mdm: MDM, weights: dict):
@@ -373,7 +380,8 @@ class FusedDDIMWindow:
     (iteration it is step i = S-1-it). ``run(x_init, cond)`` maps initial
     noise (B, T, C) to the final state; CPU tensors take the plain version,
     CUDA tensors replay a CUDA graph of the window's kernel launches,
-    recorded once per (B, T). The audio/word slab ``at @ W2[2D:]``
+    recorded once per (device, B, T), on the tensors' card whichever is
+    current. The audio/word slab ``at @ W2[2D:]``
     and the style rows ``(seed_emb + t_emb) @ W2[:D]`` of all steps are
     computed once per window (the same products every step, so exact).
     """
@@ -395,7 +403,7 @@ class FusedDDIMWindow:
         a, b = diffusion.ddim_coefficients()
         self.coef_a, self.coef_b = a.tolist(), b.tolist()
         self._rope = {}
-        self._plans = {}  # (B, T) -> _WindowPlan
+        self._plans = {}  # (device, B, T) -> _WindowPlan
 
     def rope_tables(self, t: int, device):
         """(cos, sin) tables (T, hd) f32 for one rope sub-head."""
@@ -408,7 +416,8 @@ class FusedDDIMWindow:
     def __call__(self, x_init: torch.Tensor, cond: Conditioning) -> torch.Tensor:
         if x_init.device.type == "cpu":
             return self.plain(x_init, cond)
-        return self._kernel(x_init, cond)
+        with torch.cuda.device(x_init.device):
+            return self._kernel(x_init, cond)
 
     def _inputs(self, x_init, cond):
         b, t, _ = x_init.shape
@@ -442,9 +451,10 @@ class FusedDDIMWindow:
     def _kernel(self, x_init: torch.Tensor, cond: Conditioning) -> torch.Tensor:
         _check_cuda(x_init, self.blocks)
         b, t, at, style = self._inputs(x_init, cond)
-        plan = self._plans.get((b, t))
+        key = (x_init.device, b, t)
+        plan = self._plans.get(key)
         if plan is None:
-            plan = self._plans[b, t] = _WindowPlan(self, b, t, at.shape[-1], x_init.device)
+            plan = self._plans[key] = _WindowPlan(self, b, t, at.shape[-1], x_init.device)
         # the call's inputs into the graph's static buffers; the bf16 copies
         # round where the plain version's matmuls round their inputs
         plan.x.copy_(x_init.reshape(plan.x.shape))
@@ -453,6 +463,29 @@ class FusedDDIMWindow:
         plan.style_h.copy_(style.reshape(plan.style_h.shape))
         plan.graph.replay()
         return plan.x.clone().reshape(x_init.shape)
+
+
+def make_fused_ddim_window(mdm: MDM, diffusion, *, weights_dtype=torch.bfloat16, mesh=None):
+    """K1 as JAX's ``make_fused_ddim_window`` returns it: without ``mesh``
+    a :class:`FusedDDIMWindow`; with a single-process ``mesh``
+    (:mod:`~syntalker_tpu_torch.parallel.mesh`) a callable ``(x_init, cond)
+    -> [x]`` that splits the batch into the data shards and runs each on
+    its device through that device's own ``FusedDDIMWindow`` (its weights
+    and graphs; one for each distinct device, so the shards of a device
+    take turns replaying it), returning the shards' results in data order.
+    JAX's mesh form needs no collectives either."""
+    if mesh is None:
+        return FusedDDIMWindow(mdm, diffusion, weights_dtype=weights_dtype)
+    from syntalker_tpu_torch.parallel.mesh import replicate, shard_batch
+
+    windows = {device: FusedDDIMWindow(m, diffusion, weights_dtype=weights_dtype)
+               for device, m in replicate(mdm, mesh).items()}
+
+    def run(x_init: torch.Tensor, cond: Conditioning) -> list:
+        return [windows[device](x, c) for (_, device), (x, c) in zip(mesh.data_shards(),
+                                                                    shard_batch((x_init, cond), mesh))]
+
+    return run
 
 
 class _WindowPlan:

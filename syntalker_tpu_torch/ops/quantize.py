@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from syntalker_tpu_torch.device import full_f32
+from syntalker_tpu_torch.parallel.collectives import all_reduce_sum, gather_rows, rows_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +81,12 @@ class RVQDraws:
         move = (lambda t: None if t is None else t.to(device))
         return RVQDraws(self.last_active.to(device), [move(t) for t in self.init_noise],
                         [move(t) for t in self.reset_noise], [t.to(device) for t in self.gumbel])
+
+    def shard(self, axis) -> "RVQDraws":
+        """The draws of this rank's block of the rows over a data axis: the
+        Gumbel uniforms' rows; the rest is the global batch's."""
+        return RVQDraws(self.last_active, self.init_noise, self.reset_noise,
+                        [rows_of(t, axis) for t in self.gumbel])
 
 
 def init_rvq_state(cfg: RVQConfig, device=None) -> RVQState:
@@ -185,7 +192,7 @@ def _perplexity(code_count: torch.Tensor) -> torch.Tensor:
 
 
 def rvq_forward(x: torch.Tensor, state: RVQState, cfg: RVQConfig, *, train: bool,
-                draws: Optional[RVQDraws] = None, force_dropout_index: int = -1) -> RVQOutput:
+                draws: Optional[RVQDraws] = None, force_dropout_index: int = -1, data_axis=None) -> RVQOutput:
     """The full residual-VQ forward, train or eval: straight-through output,
     per-layer indices (-1 where a layer was dropped), commit loss and
     perplexity averaged over the active layers, and the next state.
@@ -193,7 +200,16 @@ def rvq_forward(x: torch.Tensor, state: RVQState, cfg: RVQConfig, *, train: bool
     In training the codebooks are lazily initialized from the first batch
     (``state.initialized`` False), and each active layer's codebook takes
     its EMA update with dead codes reset from the batch; a dropped layer
-    keeps its state. ``draws`` (train only) are :func:`draw_rvq`'s."""
+    keeps its state. ``draws`` (train only) are :func:`draw_rvq`'s.
+
+    With a ``data_axis`` (:class:`~syntalker_tpu_torch.parallel.collectives.Axis`)
+    ``x`` is this rank's block of the global batch and every statistic is
+    the global batch's, as under JAX's data sharding: the code sums and
+    counts (hence the EMA and the perplexity) are summed over the ranks,
+    and the lazy-init and dead-code rows are the global batch's first
+    ``nb_code`` rows, gathered across ranks. ``draws`` are then
+    :meth:`RVQDraws.shard` of the global batch's. The commit loss stays
+    this rank's mean."""
     b, t, d = x.shape
     nq = cfg.num_quantizers
     flat = x.reshape(b * t, d)
@@ -218,8 +234,11 @@ def rvq_forward(x: torch.Tensor, state: RVQState, cfg: RVQConfig, *, train: bool
         for q in range(nq):
             slot = 0 if cfg.shared_codebook else q
             sg_res = residual.detach()
+            if train:
+                # the global batch's first rows: the lazy init's and the dead codes' source
+                head = gather_rows(sg_res, data_axis, cfg.nb_code)
             if train and not state.initialized:
-                codebook = code_sum = _tile_to_codebook(sg_res, cfg.nb_code, draws.init_noise[q])
+                codebook = code_sum = _tile_to_codebook(head, cfg.nb_code, draws.init_noise[q])
                 code_count = torch.ones(cfg.nb_code, dtype=x.dtype, device=x.device)
             else:
                 codebook = state.codebook[slot]
@@ -229,20 +248,21 @@ def rvq_forward(x: torch.Tensor, state: RVQState, cfg: RVQConfig, *, train: bool
                           gumbel_u=draws.gumbel[q] if train else None)
             x_d = codebook[idx]
             onehot = F.one_hot(idx, cfg.nb_code).to(sg_res.dtype)
-            batch_count = onehot.sum(0)
             if train:
                 # EMA + dead-code reset, masked by `active`: a dropped layer keeps its statistics
-                batch_sum = onehot.T @ sg_res
+                sums_counts = all_reduce_sum(torch.cat([onehot.T @ sg_res, onehot.sum(0)[:, None]], 1), data_axis)
+                batch_sum, batch_count = sums_counts[:, :-1], sums_counts[:, -1]
                 ema_sum = cfg.mu * code_sum + (1.0 - cfg.mu) * batch_sum
                 ema_count = cfg.mu * code_count + (1.0 - cfg.mu) * batch_count
                 usage = (ema_count >= 1.0).float()[:, None]
                 code_update = ema_sum / torch.clamp(ema_count[:, None], min=1e-12)
-                code_rand = _tile_to_codebook(sg_res, cfg.nb_code, draws.reset_noise[q])
+                code_rand = _tile_to_codebook(head, cfg.nb_code, draws.reset_noise[q])
                 upd = usage * code_update + (1.0 - usage) * code_rand
                 codebooks.append(torch.where(active[q], upd, codebook))
                 sums.append(torch.where(active[q], ema_sum, code_sum))
                 counts.append(torch.where(active[q], ema_count, code_count))
             else:
+                batch_count = all_reduce_sum(onehot.sum(0), data_axis)
                 codebooks.append(codebook)
                 sums.append(code_sum)
                 counts.append(code_count)

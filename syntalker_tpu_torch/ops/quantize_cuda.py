@@ -102,7 +102,7 @@ def rvq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor):
     """(N, D) rows, (Q, K, D) codebooks of any float dtype and layout ->
     (quantized (N, D) f32, indices (N, Q) int32). Both are taken to f32 on
     every device; then CPU tensors take the plain version and CUDA tensors
-    launch the kernels."""
+    launch the kernels on their own card, whichever is current."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rvq_encode_fused: unsupported device {x.device}")
     x, codebooks = _operand(x), _operand(codebooks)
@@ -119,10 +119,11 @@ def rvq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor):
     r2 = torch.empty(n, device=x.device)
     c2 = torch.empty(q, k, device=x.device)
     keys = torch.empty(n, dtype=torch.int64, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _build.library("rvq_encode").rvq_encode(
-        x.data_ptr(), codebooks.data_ptr(), out.data_ptr(), idx.data_ptr(), res.data_ptr(), r2.data_ptr(),
-        c2.data_ptr(), keys.data_ptr(), n, q, k, d, stream)
+    with torch.cuda.device(x.device):  # the runtime launches on the current card
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _build.library("rvq_encode").rvq_encode(
+            x.data_ptr(), codebooks.data_ptr(), out.data_ptr(), idx.data_ptr(), res.data_ptr(), r2.data_ptr(),
+            c2.data_ptr(), keys.data_ptr(), n, q, k, d, stream)
     _build.check(err, "rvq_encode")
     launches["rvq_encode"] += 1
     return out, idx

@@ -17,13 +17,21 @@ the service's generator.
 The decode snap runs K3. On the CPU the same code reaches the kernels'
 plain versions through their wrappers. There is no ``use_fused`` switch: on
 a CUDA device the service always takes the kernel path. The TPU tile knob
-``tile_samples`` has no counterpart; the ``mesh=`` data-parallel form waits
-for a later slice.
+``tile_samples`` has no counterpart.
+
+``mesh=`` is JAX's data-parallel form, in one process and with no
+collectives: each data shard of a flush (``max_batch / data`` requests of
+every group) runs on its device with that device's copy of the weights,
+its own K1/K2 graphs and its own K3 calls; the results are gathered to the
+host in data-axis order. Each group's initial noise is still drawn once at
+the full bucket from the service's generator, then split, so a sharded
+flush sees the noise of an unsharded one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 import time
 from typing import Dict, List, Optional
@@ -36,6 +44,7 @@ from syntalker_tpu_torch.data import audio as A
 from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.device import resolve_device
 from syntalker_tpu_torch.ops.mdm_cuda import make_fused_denoise, stack_block_weights
+from syntalker_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 
 
 @dataclasses.dataclass
@@ -65,8 +74,10 @@ class MotionGenerationService:
 
     ``mdm`` is a :class:`~syntalker_tpu_torch.models.denoiser.MDM` and
     ``rvq_modules`` maps each body part to ``(RVQVAE, RVQState)``; both are
-    moved to ``device`` (CUDA unless ``device="cpu"``). ``seed`` seeds the
-    generator that draws each group's initial noise.
+    moved to ``device`` (CUDA unless ``device="cpu"``), or with ``mesh`` (a
+    single-process :class:`~syntalker_tpu_torch.parallel.mesh.Mesh`) copied
+    to each of its devices. ``seed`` seeds the generator that draws each
+    group's initial noise, on the first data shard's device.
     """
 
     def __init__(
@@ -87,14 +98,22 @@ class MotionGenerationService:
         fused_loop: bool = True,
         device=None,
         seed: int = 0,
+        mesh: Optional[Mesh] = None,
     ):
-        self.device = resolve_device(device)
-        self.mdm = mdm.to(self.device)
+        if mesh is None:
+            mesh = Mesh([[resolve_device(device)]], local=True)
+        else:
+            if "data" not in mesh.shape:
+                raise ValueError(f"mesh needs a 'data' axis, got {mesh.shape}")
+            if max_batch % mesh.shape["data"]:
+                raise ValueError(f"max_batch {max_batch} not divisible by data axis {mesh.shape['data']}")
+        self.mesh = mesh
+        self.device = mesh.data_shards()[0][1]
+        rvq_modules = {part: (module, dataclasses.replace(state, code_sum=None, code_count=None))
+                       for part, (module, state) in rvq_modules.items()}
+        replicas = replicate({"mdm": mdm, "rvq": rvq_modules}, mesh)
+        self.mdm, self.rvq_modules = replicas[self.device]["mdm"], replicas[self.device]["rvq"]
         self.diffusion = diffusion
-        self.rvq_modules = {
-            part: (module.to(self.device), dataclasses.replace(state, codebook=state.codebook.to(self.device)))
-            for part, (module, state) in rvq_modules.items()
-        }
         self.stats = stats
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
@@ -108,17 +127,19 @@ class MotionGenerationService:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        # K2's weights, with its CUDA graphs: the prompted path's, and the fast path's without fused_loop
-        weights = stack_block_weights(self.mdm)
-        self._prompted_denoise = make_fused_denoise(self.mdm, weights)
-        if fused_loop:
-            self._sample = G.make_fused_loop_sampler(self.mdm, diffusion, self.plan)
-        else:
+        # a device's weights, with its CUDA graphs: K2's (the prompted path's, and the fast path's without
+        # fused_loop) and K1's
+        self._replicas = {}
+        for dev, r in replicas.items():
+            weights = stack_block_weights(r["mdm"])
+            if fused_loop:
+                sample = G.make_fused_loop_sampler(r["mdm"], diffusion, self.plan)
+            else:
+                sample = functools.partial(self._sample_fused, r["mdm"], weights)
+            self._replicas[dev] = {**r, "denoise": make_fused_denoise(r["mdm"], weights), "sample": sample}
 
-            def sample(aw, ww, seed_lat, noise):
-                return G.sample_windows_fused(self.mdm, diffusion, self.plan, aw, ww, seed_lat, noise, weights=weights)
-
-            self._sample = sample
+    def _sample_fused(self, mdm, weights, aw, ww, seed_lat, noise):
+        return G.sample_windows_fused(mdm, self.diffusion, self.plan, aw, ww, seed_lat, noise, weights=weights)
 
     @staticmethod
     def _bucket_key(req: MotionRequest):
@@ -174,11 +195,11 @@ class MotionGenerationService:
             out.extend(self._run_group(key, items))
         return out
 
-    def _stack_rows(self, rows) -> torch.Tensor:
+    def _stack_rows(self, rows) -> np.ndarray:
         """Per-request vectors padded with zero rows to max_batch."""
         rows = [np.asarray(r, np.float32) for r in rows]
         rows += [np.zeros_like(rows[0])] * (self.max_batch - len(rows))
-        return torch.as_tensor(np.stack(rows), device=self.device)
+        return np.stack(rows)
 
     def _run_group(self, key, batch) -> List[MotionResult]:
         feats, words = zip(*(self._prepare(r) for r, _, _ in batch))
@@ -186,26 +207,34 @@ class MotionGenerationService:
         audio = np.concatenate([np.stack(feats), np.zeros((pad, self.samples, 2), np.float32)])
         word = np.concatenate([np.stack(words), np.zeros((pad, self.plan.n_frames), np.int64)])
 
-        dev = self.device
-        aw = torch.as_tensor(G.window_audio(audio, self.plan, sr=self.sr, fps=self.fps), device=dev)
-        ww = torch.as_tensor(G.window_words(word, self.plan), device=dev)
-        seed = torch.zeros(self.max_batch, self.plan.pre_frames, J.LATENT_DIM, device=dev)
-        noise = G.draw_noise(self.plan, self.max_batch, self._gen, dev)
+        aw = G.window_audio(audio, self.plan, sr=self.sr, fps=self.fps)
+        ww = G.window_words(word, self.plan)
+        seed = np.zeros((self.max_batch, self.plan.pre_frames, J.LATENT_DIM), np.float32)
+        noise = G.draw_noise(self.plan, self.max_batch, self._gen, self.device)
+        rows = {"seed": seed}
+        if key is not None:
+            parts, audio_scale, prompt_scale, has_style = key
+            rows["prompts"] = {p: self._stack_rows([r.prompts[p] for r, _, _ in batch]) for p in parts}
+            rows["style"] = self._stack_rows([r.style for r, _, _ in batch]) if has_style else None
+        decoded = []
         with torch.no_grad():
-            if key is None:
-                latents = self._sample(aw, ww, seed, noise)
-            else:
-                parts, audio_scale, prompt_scale, has_style = key
-                prompts = {p: self._stack_rows([r.prompts[p] for r, _, _ in batch]) for p in parts}
-                style = self._stack_rows([r.style for r, _, _ in batch]) if has_style else None
-                latents = G.sample_windows(
-                    self.mdm, self.diffusion, self.plan, aw, ww, seed, noise, sampler="ddim",
-                    prompts=prompts or None, guidance={"audio_scale": audio_scale, "prompt_scale": prompt_scale},
-                    style=style, denoise=self._prompted_denoise)
-            dec = G.decode_latents(latents, rvq_modules=self.rvq_modules, stats=self.stats,
-                                   latent_scale=self.latent_scale)
-        aa = dec["axis_angle"].cpu().numpy()
-        trans = dec["trans"].cpu().numpy()
+            # every shard's sampling and decode is issued before any result is copied back
+            for (_, dev), (aw_s, ww_s, noise_s), rows_s in zip(
+                    self.mesh.data_shards(), shard_batch((aw, ww, noise), self.mesh, axis=1),
+                    shard_batch(rows, self.mesh)):
+                r = self._replicas[dev]
+                if key is None:
+                    latents = r["sample"](aw_s, ww_s, rows_s["seed"], noise_s)
+                else:
+                    latents = G.sample_windows(
+                        r["mdm"], self.diffusion, self.plan, aw_s, ww_s, rows_s["seed"], noise_s, sampler="ddim",
+                        prompts=rows_s["prompts"] or None,
+                        guidance={"audio_scale": audio_scale, "prompt_scale": prompt_scale},
+                        style=rows_s["style"], denoise=r["denoise"])
+                decoded.append(G.decode_latents(latents, rvq_modules=r["rvq"], stats=self.stats,
+                                                latent_scale=self.latent_scale))
+        aa = np.concatenate([dec["axis_angle"].cpu().numpy() for dec in decoded])
+        trans = np.concatenate([dec["trans"].cpu().numpy() for dec in decoded])
 
         out = []
         now = time.perf_counter()

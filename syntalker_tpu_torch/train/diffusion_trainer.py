@@ -30,6 +30,8 @@ from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.diffusion.core import training_loss
 from syntalker_tpu_torch.diffusion.schedule import DiffusionParams
 from syntalker_tpu_torch.models.denoiser import MDM, TrainDraws, draw_train
+from syntalker_tpu_torch.parallel.collectives import all_reduce_mean, all_reduce_mean_, rows_of
+from syntalker_tpu_torch.parallel.mesh import attach_data_axis
 from syntalker_tpu_torch.train.optim import apply_updates
 from syntalker_tpu_torch.train.state import TrainState
 
@@ -52,6 +54,11 @@ class DiffusionDraws:
     def to(self, device) -> "DiffusionDraws":
         return DiffusionDraws(self.t.to(device), self.noise.to(device), self.masks.to(device))
 
+    def shard(self, axis) -> "DiffusionDraws":
+        """The draws of this rank's block of the global batch over a data
+        axis."""
+        return DiffusionDraws(rows_of(self.t, axis), rows_of(self.noise, axis), self.masks.shard(axis))
+
 
 def draw_diffusion(mdm: MDM, diffusion: DiffusionParams, x0_shape, generator: torch.Generator,
                    device=None) -> DiffusionDraws:
@@ -62,19 +69,32 @@ def draw_diffusion(mdm: MDM, diffusion: DiffusionParams, x0_shape, generator: to
 
 
 def make_diffusion_train_step(mdm: MDM, diffusion: DiffusionParams, optimizer,
-                              cfg: DiffusionTrainConfig = DiffusionTrainConfig()):
+                              cfg: DiffusionTrainConfig = DiffusionTrainConfig(), *, mesh=None):
     """A ``(state, batch, draws=None) -> (state, metrics)`` step.
 
     batch: ``latent_in`` (B, T_lat, 1536) scaled latents (x0), ``audio``
     (B, S, 2) onset+amplitude channels, ``word`` (B, F) ids, and optionally
     ``prompt`` (B, prompt_dim) and ``style`` (B, style_dim). The module is
     put in training mode; ``metrics["predict_x0_loss"]`` is the batch mean
-    loss (detached)."""
+    loss (detached).
+
+    Under a process-group ``mesh`` the batch is this rank's data shard of
+    the global batch: the draws are the global batch's (drawn at its shape
+    from the state's generator, which every rank keeps in step, or given)
+    and the rank takes its rows; a ``'batch'``-norm wav encoder takes the
+    global moments; the gradients are averaged over the data axis before
+    the optimizer, so every rank applies the same update; the loss is the
+    global mean."""
+    data = None if mesh is None else mesh.data
+    n_data = 1 if data is None else data.size
+    attach_data_axis(mdm, mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[DiffusionDraws] = None):
         x0 = batch["latent_in"]
         if draws is None:
-            draws = draw_diffusion(mdm, diffusion, x0.shape, state.generator, x0.device)
+            draws = draw_diffusion(mdm, diffusion, (n_data * x0.shape[0],) + tuple(x0.shape[1:]), state.generator,
+                                   x0.device)
+        draws = draws.shard(data)
         mdm.train()
         params = state.params
         cond = mdm.encode_cond(batch["audio"], batch["word"], x0[:, : cfg.pre_frames], prompt=batch.get("prompt"),
@@ -84,11 +104,11 @@ def make_diffusion_train_step(mdm: MDM, diffusion: DiffusionParams, optimizer,
             return mdm.denoise(x_t, t_orig, cond, draws=draws.masks)
 
         loss = training_loss(diffusion, model_fn, x0, draws.t, draws.noise).mean()
-        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = all_reduce_mean_(list(torch.autograd.grad(loss, list(params.values()))), data)
         updates, state.opt_state = optimizer.update(dict(zip(params, grads)), state.opt_state, params)
         apply_updates(params, updates)
         state.step += 1
-        return state, {"predict_x0_loss": loss.detach()}
+        return state, {"predict_x0_loss": all_reduce_mean(loss.detach(), data)}
 
     return step
 

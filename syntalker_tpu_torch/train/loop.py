@@ -1,7 +1,6 @@
 """The trainers' loops, and the body-part RVQ-VAE stack.
 
-Counterpart of ``syntalker_tpu/train/loop.py`` for the ``beat2`` (330-d
-rot6d) representation on one device:
+Counterpart of ``syntalker_tpu/train/loop.py``:
 
 - ``rvq_config`` and ``load_rvq_stack``: one RVQ-VAE per body part, sized
   to a third of the denoiser's latent, loaded from npz checkpoints (see
@@ -22,13 +21,24 @@ rot6d) representation on one device:
   prompt where a batch has none.
 
 Batches come from the host ``BatchLoader`` or, with ``train.device_data``,
-from a ``DeviceDataset``: the whole window set on the trainer's device,
-each batch gathered there by index. A set above the device's budget raises
+from a ``DeviceDataset``: the whole window set on the trainer's device (or,
+under a data-parallel mesh, its slice when the whole does not fit), each
+batch gathered there by index. A set above the budget raises
 ``DatasetTooLargeError``, and the trainer logs it and streams host batches
 instead, as JAX's does. Every draw of a step comes from the train state's
 ``torch.Generator`` unless the caller passes ``draws``, a callable
 ``(it) -> draws`` of the loop's iteration (the CPU tests feed JAX's draws
-this way). More than one device raises.
+this way).
+
+Data and model parallelism run one process per device over
+``torch.distributed`` (``torchrun``; :func:`~syntalker_tpu_torch.parallel.multihost.init_multihost`):
+the mesh is ``train.data_parallel`` x ``train.model_parallel`` over the
+process group (-1: the ranks that remain). Every rank loads the same global
+batch (``batch_size`` is global, as in JAX) and trains on its data shard;
+the steps average the gradients over the data axis, so every rank applies
+the same update. ``model_parallel > 1`` replicates the parameters over the
+model axis, as JAX's trainer does. Checkpoints and logs are the primary
+rank's. A mesh larger than the group raises.
 """
 
 from __future__ import annotations
@@ -56,6 +66,8 @@ from syntalker_tpu_torch.diffusion.schedule import make_diffusion
 from syntalker_tpu_torch.models.denoiser import apply_word_embedding, build_mdm
 from syntalker_tpu_torch.models.rvqvae import RVQVAEConfig, build_rvqvae
 from syntalker_tpu_torch.ops.quantize import RVQConfig, init_rvq_state
+from syntalker_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate, shard_batch
+from syntalker_tpu_torch.parallel.multihost import group_started, is_primary
 from syntalker_tpu_torch.train import optim
 from syntalker_tpu_torch.train import state as ts
 from syntalker_tpu_torch.train.diffusion_trainer import (DiffusionTrainConfig, make_diffusion_train_step,
@@ -97,12 +109,24 @@ def load_rvq_stack(cfg: ExperimentConfig, *, seed: int, device=None) -> Dict[str
 
 
 def check_supported(cfg: ExperimentConfig) -> None:
-    """Raise for what the port's trainers do not run yet."""
-    if cfg.train.data_parallel > 1 or cfg.train.model_parallel > 1:
-        raise NotImplementedError(
-            f"train.data_parallel={cfg.train.data_parallel}, train.model_parallel={cfg.train.model_parallel}: "
-            "the port trains on one GPU; data and model parallelism wait for its multi-GPU slice "
-            "(ROADMAP.md, 'Multi-GPU')")
+    """Raise for a mesh larger than the process group (one process when
+    there is none): nothing falls back to fewer devices."""
+    world = torch.distributed.get_world_size() if group_started() else 1
+    data, model = cfg.train.data_parallel, cfg.train.model_parallel
+    if model < 1 or model * max(data, 1) > world or (data == -1 and world % model):
+        raise ValueError(
+            f"train.data_parallel={data} x train.model_parallel={model} is larger than the process group of {world}: "
+            "start one process per device (torchrun --nproc_per_node=N -m syntalker_tpu_torch.cli.train ...)")
+
+
+def train_mesh(cfg: ExperimentConfig, device=None) -> Optional[Mesh]:
+    """The trainers' (data, model) mesh over the process group, each rank
+    on ``device`` when given; None in a single process."""
+    check_supported(cfg)
+    if not group_started():
+        return None
+    devices = None if device is None else [device] * torch.distributed.get_world_size()
+    return make_mesh(cfg.train.data_parallel, cfg.train.model_parallel, devices=devices)
 
 
 def pose_stats(cfg: ExperimentConfig, stats: Optional[PoseStats]) -> PoseStats:
@@ -129,9 +153,9 @@ class _Loop:
     _batch_keys: tuple
 
     def _init_loop(self, cfg: ExperimentConfig, cache: BeatCache, batch_size: int, device) -> None:
-        check_supported(cfg)
+        self.mesh = train_mesh(cfg, device)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if self.mesh is None else self.mesh.device
         set_random_seed(cfg.train.seed)
         self.loader = BatchLoader(cache, batch_size, seed=cfg.train.seed)
         self._dataset = None
@@ -141,18 +165,29 @@ class _Loop:
         """The whole cache on the trainer's device, made at first use."""
         if self._dataset is None:
             self._dataset = DeviceDataset(self.loader.cache, self._batch_keys, self.loader.batch_size,
-                                          seed=self.cfg.train.seed, device=self.device)
-            log.info(f"device-resident dataset: {self._dataset.n} windows, {self._dataset.nbytes / 1e9:.2f} GB "
-                     f"copied once to {self.device} ({self._dataset.placement})")
+                                          seed=self.cfg.train.seed, device=self.device, mesh=self.mesh)
+            if is_primary():
+                log.info(f"device-resident dataset: {self._dataset.n} windows, {self._dataset.nbytes / 1e9:.2f} GB "
+                         f"copied once to {self.device} ({self._dataset.placement})")
         return self._dataset
 
-    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(batch[k]).to(self.device) for k in self._batch_keys if k in batch}
+    def _to_device(self, batch: dict) -> Dict[str, torch.Tensor]:
+        """A global batch's tensors, this rank's data shard under a mesh."""
+        batch = {k: batch[k] for k in self._batch_keys if k in batch}
+        if self.mesh is not None:
+            return shard_batch(batch, self.mesh)[0]
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    def _replicate(self, module: torch.nn.Module) -> None:
+        """Rank 0's weights on every rank (replicated over the model axis
+        too)."""
+        if self.mesh is not None:
+            replicate(module, self.mesh)
 
     def epoch_batches(self, epoch: int):
-        """The epoch's batches as device tensors: gathered from the
-        device-resident dataset with ``train.device_data``, else copied
-        from the host loader's."""
+        """The epoch's batches as device tensors (this rank's data shard
+        under a mesh): gathered from the device-resident dataset with
+        ``train.device_data``, else copied from the host loader's."""
         if self.cfg.train.device_data:
             try:
                 ds = self.device_dataset()
@@ -162,7 +197,7 @@ class _Loop:
                                                                                    device_data=False))
             else:
                 for idx in ds.epoch_indices(epoch):
-                    yield ds.batch(idx)
+                    yield self._to_device(ds.batch(idx))
                 return
         for batch in self.loader.epoch(epoch):
             yield self._to_device(batch)
@@ -191,11 +226,13 @@ class DiffusionTrainer(_Loop):
         self.rvq = load_rvq_stack(cfg, seed=cfg.train.seed + RVQ_SEED_OFFSET, device=self.device)
         self.diffusion = make_diffusion(schedule=cfg.diffusion.schedule, steps=cfg.diffusion.steps,
                                         timestep_respacing=cfg.diffusion.timestep_respacing or None)
+        self._replicate(self.mdm)
         self.optimizer = optim.make_diffusion_optimizer(cfg.train.lr, cfg.train.grad_clip)
         self.state = ts.create_train_state(self.mdm, self.optimizer,
                                            torch.Generator(self.device).manual_seed(cfg.train.seed))
         self._raw_step = make_diffusion_train_step(self.mdm, self.diffusion, self.optimizer,
-                                                   DiffusionTrainConfig(cfg.pre_frames, cfg.latent_scale))
+                                                   DiffusionTrainConfig(cfg.pre_frames, cfg.latent_scale),
+                                                   mesh=self.mesh)
         if cfg.representation == "h3d623":
             self.h3d_stats = h3d_stats(cfg)
             self._masks = {p: torch.as_tensor(part_mask_623(p), device=self.device).long() for p in J.LATENT_SLICES}
@@ -259,17 +296,20 @@ class DiffusionTrainer(_Loop):
                                      "step_ms": 1e3 * timer.step_s,
                                      "ms_per_step": 1e3 * (now - last[0]) / (it - last[1])})
                 last = (now, it)
-                log.info(f"epoch {epoch} it {it}: loss {loss:.4f} "
-                         f"(data {timer.data_s * 1e3:.0f}ms step {timer.step_s * 1e3:.0f}ms)")
+                if is_primary():
+                    log.info(f"epoch {epoch} it {it}: loss {loss:.4f} "
+                             f"(data {timer.data_s * 1e3:.0f}ms step {timer.step_s * 1e3:.0f}ms)")
             if self.cfg.train.debug and it >= 1:
-                # the checkpoint round trip of a debug run
+                # the checkpoint round trip of a debug run (the primary's; the others hold the same state)
                 path = self.save()
-                ts.load_checkpoint(path, self.state)
+                if path is not None:
+                    ts.load_checkpoint(path, self.state)
                 break
         return self.tracker.end_epoch(epoch)
 
-    def save(self, step: Optional[int] = None) -> Path:
-        return ts.save_checkpoint(self.cfg.train.ckpt_dir, self.state, step)
+    def save(self, step: Optional[int] = None) -> Optional[Path]:
+        """Write the train state (the primary rank; None on the others)."""
+        return ts.save_checkpoint(self.cfg.train.ckpt_dir, self.state, step) if is_primary() else None
 
 
 class RVQTrainer(_Loop):
@@ -283,6 +323,7 @@ class RVQTrainer(_Loop):
         self.stats = pose_stats(cfg, stats)
         rcfg = rvq_config(cfg, self.part)
         self.module = build_rvqvae(rcfg, seed=cfg.train.seed, device=self.device)[0]
+        self._replicate(self.module)
         self.optimizer = optim.make_rvq_optimizer(rt.lr, rt.warmup_iters, rt.milestones, rt.gamma)
         self.state = ts.create_train_state(self.module, self.optimizer,
                                            torch.Generator(self.device).manual_seed(cfg.train.seed),
@@ -290,7 +331,7 @@ class RVQTrainer(_Loop):
         self.h3d = cfg.representation == "h3d623"
         self.use_trans = self.part == "lower" and cfg.data.use_trans and not self.h3d
         self._raw_step = make_rvq_train_step(self.module, self.optimizer,
-                                             RVQLossConfig(commit_weight=rt.commit_weight))
+                                             RVQLossConfig(commit_weight=rt.commit_weight), mesh=self.mesh)
         if self.h3d:
             self.h3d_stats = h3d_stats(cfg)
             self._mask = torch.as_tensor(part_mask_623(self.part), device=self.device).long()
@@ -337,8 +378,9 @@ class RVQTrainer(_Loop):
                     self.history.append({"it": it, **m, "data_ms": 1e3 * timer.data_s, "step_ms": 1e3 * timer.step_s,
                                          "ms_per_step": 1e3 * (now - last[0]) / (it - last[1])})
                     last = (now, it)
-                    log.info(f"iter {it}: loss {m['loss']:.4f} recon {m['recon']:.4f} "
-                             f"perplexity {m['perplexity']:.1f}")
+                    if is_primary():
+                        log.info(f"iter {it}: loss {m['loss']:.4f} recon {m['recon']:.4f} "
+                                 f"perplexity {m['perplexity']:.1f}")
                 if it % self.cfg.rvq_train.save_every == 0:
                     self.save(it)
                 if it >= total:
@@ -346,5 +388,8 @@ class RVQTrainer(_Loop):
             epoch += 1
         return self.state
 
-    def save(self, step: Optional[int] = None) -> Path:
+    def save(self, step: Optional[int] = None) -> Optional[Path]:
+        """Write the train state (the primary rank; None on the others)."""
+        if not is_primary():
+            return None
         return ts.save_checkpoint(Path(self.cfg.train.ckpt_dir) / f"rvq_{self.part}", self.state, step)

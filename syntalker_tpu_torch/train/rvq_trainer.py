@@ -23,6 +23,8 @@ import torch
 
 from syntalker_tpu_torch.diffusion.core import smooth_l1
 from syntalker_tpu_torch.models.rvqvae import RVQVAE, RVQVAEDraws, draw_rvqvae
+from syntalker_tpu_torch.parallel.collectives import all_reduce_mean, all_reduce_mean_
+from syntalker_tpu_torch.parallel.mesh import attach_data_axis
 from syntalker_tpu_torch.train.optim import apply_updates
 from syntalker_tpu_torch.train.state import TrainState
 
@@ -53,24 +55,36 @@ def rvq_loss(rec: torch.Tensor, gt: torch.Tensor, commit: torch.Tensor,
     return loss, metrics
 
 
-def make_rvq_train_step(module: RVQVAE, optimizer, loss_cfg: RVQLossConfig = RVQLossConfig()):
+def make_rvq_train_step(module: RVQVAE, optimizer, loss_cfg: RVQLossConfig = RVQLossConfig(), *, mesh=None):
     """A ``(state, batch, draws=None) -> (state, metrics)`` step on a
     (B, T, input_dim) batch of normalized pose features. ``draws`` default
     to :func:`draw_rvqvae` from ``state.generator``; the metrics (recon,
-    commit, perplexity, loss, ...) are detached 0-d tensors."""
+    commit, perplexity, loss, ...) are detached 0-d tensors.
+
+    Under a process-group ``mesh`` the batch is this rank's data shard of
+    the global batch: the draws are the global batch's and the rank takes
+    its rows, the quantizer's statistics are the global batch's (so the
+    EMA codebooks stay the same on every rank), the gradients are averaged
+    over the data axis before the optimizer, and the metrics are global
+    means (the perplexity is the global counts' already)."""
+    data = None if mesh is None else mesh.data
+    n_data = 1 if data is None else data.size
+    attach_data_axis(module, mesh)
 
     def step(state: TrainState, batch: torch.Tensor, draws: Optional[RVQVAEDraws] = None):
         if draws is None:
-            draws = draw_rvqvae(module.cfg, batch.shape, state.generator, batch.device)
+            draws = draw_rvqvae(module.cfg, (n_data * batch.shape[0],) + tuple(batch.shape[1:]), state.generator,
+                                batch.device)
+        draws = draws.shard(data)
         params = state.params
         rec, out = module(batch, state.quantizer_state, train=True, draws=draws)
         loss, metrics = rvq_loss(rec, batch, out.commit_loss, loss_cfg)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = all_reduce_mean_(list(torch.autograd.grad(loss, list(params.values()))), data)
         updates, state.opt_state = optimizer.update(dict(zip(params, grads)), state.opt_state, params)
         apply_updates(params, updates)
         state.step += 1
         state.quantizer_state = out.state
-        metrics.update(perplexity=out.perplexity, loss=loss)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: all_reduce_mean(v.detach(), data) for k, v in metrics.items()}
+        return state, {**metrics, "perplexity": out.perplexity.detach(), "loss": all_reduce_mean(loss.detach(), data)}
 
     return step

@@ -1,7 +1,7 @@
 """The port stands alone: importing ``syntalker_tpu_torch`` (every
 submodule, the train steps, optimizers, trainers, data path, registries,
 the evaluation and text-control slices, the train and evaluation CLIs, the
-checkpoint converters, the renderer and the demo included) and
+checkpoint converters, the renderer, the demo and the mesh layer included) and
 ``chip_smoke.py`` pulls in neither JAX, flax, optax, orbax nor the JAX
 package, nor does running those CLIs' ``--help``; the renderer's worker
 processes import no torch; entry points refuse to fall back to the CPU silently, and the
@@ -78,6 +78,17 @@ def test_evaluation_modules_are_walked():
         assert (PKG / rel).exists(), rel
 
 
+def test_multi_gpu_modules_are_walked():
+    """The mesh layer's modules are among those the probe imports, and the
+    package exports JAX's names."""
+    for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py", "parallel/collectives.py"):
+        assert (PKG / rel).exists(), rel
+    import syntalker_tpu_torch.parallel as par
+    for name in ("make_mesh", "shard_batch", "replicate", "param_specs", "MDM_TP_LAYOUT", "shard_params",
+                 "init_multihost", "is_primary", "data_sharding", "replicated_sharding"):
+        assert hasattr(par, name), name
+
+
 def test_text_control_modules_are_walked():
     """The text-control (h3d) slice's modules are among those the probe imports."""
     for rel in ("eval/t2m.py", "eval/harness_h3d.py", "cli/test_h3d.py", "data/amass.py", "data/word_bert.py",
@@ -111,7 +122,8 @@ def test_import_pulls_in_no_jax():
     walked = set(json.loads(imported))
     for name in ("ops.smplx", "data.h3d", "models.skeleton", "models.eval_vae", "eval.metrics", "eval.harness",
                  "train.ae_trainer", "cli.test", "cli.train_aux", "eval.t2m", "eval.harness_h3d", "cli.test_h3d",
-                 "data.amass", "data.word_bert", "data.bvh", "convert", "render", "cli.demo"):
+                 "data.amass", "data.word_bert", "data.bvh", "convert", "render", "cli.demo", "parallel.mesh",
+                 "parallel.multihost", "parallel.collectives"):
         assert f"syntalker_tpu_torch.{name}" in walked, name
 
 
@@ -124,7 +136,8 @@ def test_render_workers_import_no_torch():
     assert out.stdout.strip().splitlines()[-1] == "false"
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"], ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "tests" / name for name in ("torch_parallel_worker.py", "test_torch_parallel_cuda.py")], ids=lambda p: p.name)
 def test_sources_import_no_jax(path):
     for node in ast.walk(ast.parse(path.read_text())):
         names = []

@@ -11,6 +11,10 @@ their noise from the caller: the initial noise as a tensor, and for DDPM and
 η > 0 DDIM the per-step noise ``step_noise``, either a tensor indexed by the
 iteration (S, B, T, C) or a callable ``(it) -> (B, T, C)``; the training
 loss takes its timesteps and noise as tensors.
+
+Each iteration of a sampler is a ``sample.step`` span of
+:mod:`~syntalker_tpu_torch.utils.tracking` (recorded only while the tracer
+is on).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from syntalker_tpu_torch.diffusion.schedule import DiffusionParams
+from syntalker_tpu_torch.utils import tracking
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (x_t, t_orig) -> x0_pred
 StepNoise = Union[torch.Tensor, Callable[[int], torch.Tensor]]
@@ -81,14 +86,15 @@ def ddpm_sample(params: DiffusionParams, model_fn: ModelFn, init_noise: torch.Te
     (B, T, C); the last step adds no noise."""
     x = init_noise
     for it in range(params.num_steps):
-        i, t, t_orig = _step_inputs(params, x, it)
-        pred_x0 = model_fn(x, t_orig)
-        if clip_denoised:
-            pred_x0 = pred_x0.clamp(-1.0, 1.0)
-        mean = q_posterior_mean(params, pred_x0, x, t)
-        x = mean
-        if i > 0:
-            x = x + torch.exp(0.5 * params.gather("posterior_log_variance_clipped", t)) * _noise_at(step_noise, it)
+        with tracking.span("sample.step"):
+            i, t, t_orig = _step_inputs(params, x, it)
+            pred_x0 = model_fn(x, t_orig)
+            if clip_denoised:
+                pred_x0 = pred_x0.clamp(-1.0, 1.0)
+            mean = q_posterior_mean(params, pred_x0, x, t)
+            x = mean
+            if i > 0:
+                x = x + torch.exp(0.5 * params.gather("posterior_log_variance_clipped", t)) * _noise_at(step_noise, it)
     return x
 
 
@@ -99,17 +105,18 @@ def ddim_sample(params: DiffusionParams, model_fn: ModelFn, init_noise: torch.Te
     η = 0 (the default) is deterministic and reads no ``step_noise``."""
     x = init_noise
     for it in range(params.num_steps):
-        i, t, t_orig = _step_inputs(params, x, it)
-        pred_x0 = model_fn(x, t_orig)
-        if clip_denoised:
-            pred_x0 = pred_x0.clamp(-1.0, 1.0)
-        eps = predict_eps_from_xstart(params, x, t, pred_x0)
-        abar = params.gather("alphas_cumprod", t)
-        abar_prev = params.gather("alphas_cumprod_prev", t)
-        sigma = eta * torch.sqrt((1 - abar_prev) / (1 - abar)) * torch.sqrt(1 - abar / abar_prev)
-        x = torch.sqrt(abar_prev) * pred_x0 + torch.sqrt(torch.clamp(1 - abar_prev - sigma**2, min=0.0)) * eps
-        if eta and i > 0:
-            x = x + sigma * _noise_at(step_noise, it)
+        with tracking.span("sample.step"):
+            i, t, t_orig = _step_inputs(params, x, it)
+            pred_x0 = model_fn(x, t_orig)
+            if clip_denoised:
+                pred_x0 = pred_x0.clamp(-1.0, 1.0)
+            eps = predict_eps_from_xstart(params, x, t, pred_x0)
+            abar = params.gather("alphas_cumprod", t)
+            abar_prev = params.gather("alphas_cumprod_prev", t)
+            sigma = eta * torch.sqrt((1 - abar_prev) / (1 - abar)) * torch.sqrt(1 - abar / abar_prev)
+            x = torch.sqrt(abar_prev) * pred_x0 + torch.sqrt(torch.clamp(1 - abar_prev - sigma**2, min=0.0)) * eps
+            if eta and i > 0:
+                x = x + sigma * _noise_at(step_noise, it)
     return x
 
 

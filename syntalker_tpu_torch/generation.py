@@ -32,6 +32,12 @@ JAX's threefry key chain has no PyTorch counterpart, so every sampler takes
 the per-window initial noise explicitly, ``(W, B, T, 1536)`` (see
 :func:`draw_noise` for drawing it from a ``torch.Generator``), and DDPM its
 per-step noise.
+
+With the tracer of :mod:`~syntalker_tpu_torch.utils.tracking` on, each
+window is a ``sample.window`` span (``path`` ``k1``, ``k2``, ``guided`` or
+``plain``), each conditioning encode a ``sample.encode`` (``branches``: the
+encodes it holds), each denoising step a ``sample.step`` and each decode a
+``decode`` (``rows``).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from syntalker_tpu_torch.models.denoiser import MDM, Conditioning, apply_rope, r
 from syntalker_tpu_torch.ops import rotations as rot
 from syntalker_tpu_torch.ops.mdm_cuda import FusedDDIMWindow, make_fused_denoise, stack_block_weights
 from syntalker_tpu_torch.parallel.mesh import replicate, shard_batch
+from syntalker_tpu_torch.utils import tracking
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +135,8 @@ def encode_windows(mdm: MDM, audio_windows, word_windows, pre: int) -> torch.Ten
     aw = audio_windows.reshape((n_w * b,) + audio_windows.shape[2:])
     ww = word_windows.reshape((n_w * b,) + word_windows.shape[2:])
     zseed = torch.zeros(n_w * b, pre, J.LATENT_DIM, device=aw.device)
-    at = mdm.encode_cond(aw, ww, zseed).at_feat
+    with tracking.span("sample.encode", branches=1):
+        at = mdm.encode_cond(aw, ww, zseed).at_feat
     return at.reshape((n_w, b) + at.shape[1:])
 
 
@@ -169,15 +177,19 @@ def sample_window(mdm: MDM, diffusion, denoise_fn, audio, word, seed, noise, *, 
         return mdm.encode_cond(audio, word, seed, style=style, **kw)
 
     if prompts is None:
-        cond = encode(uncond_audio=uncond_audio)
+        with tracking.span("sample.encode", branches=1):
+            cond = encode(uncond_audio=uncond_audio)
 
         def model_fn(x, t):
             return denoise_fn(x, t, cond)
     else:
-        part_conds = {name: None if prompts.get(name) is None
-                      else encode(uncond_audio=True, prompt=prompts[name]) for name in J.LATENT_SLICES}
+        branches = 2 + sum(prompts.get(name) is not None for name in J.LATENT_SLICES)
+        with tracking.span("sample.encode", branches=branches):
+            part_conds = {name: None if prompts.get(name) is None
+                          else encode(uncond_audio=True, prompt=prompts[name]) for name in J.LATENT_SLICES}
+            cond_audio, uncond = encode(uncond_prompt=True), encode(uncond_audio=True, uncond_prompt=True)
         model_fn = make_bodypart_cfg_model_fn(
-            denoise_fn, encode(uncond_prompt=True), encode(uncond_audio=True, uncond_prompt=True), part_conds,
+            denoise_fn, cond_audio, uncond, part_conds,
             audio_scale=guidance.get("audio_scale", 1.0), prompt_scale=guidance.get("prompt_scale", 4.0))
     return sample(diffusion, model_fn, noise, method=sampler, step_noise=step_noise)
 
@@ -193,14 +205,16 @@ def sample_windows(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, word_wi
     ``(w, it) -> (B, T, 1536)``. ``denoise(x_t, t_emb, cond) -> x0``
     defaults to the block stack through K2 with bf16 weights."""
     denoise_fn = make_denoise_fn(mdm, diffusion, denoise)
+    path = "plain" if prompts is None else "guided"
     seed, outs = init_seed, []
     for w in range(plan.num_windows):
         noise_w = step_noise
         if step_noise is not None:
             noise_w = functools.partial(step_noise, w) if callable(step_noise) else step_noise[w]
-        x = sample_window(mdm, diffusion, denoise_fn, audio_windows[w], word_windows[w], seed, noise[w],
-                          sampler=sampler, step_noise=noise_w, prompts=prompts, guidance=guidance,
-                          uncond_audio=uncond_audio, style=style)
+        with tracking.span("sample.window", path=path):
+            x = sample_window(mdm, diffusion, denoise_fn, audio_windows[w], word_windows[w], seed, noise[w],
+                              sampler=sampler, step_noise=noise_w, prompts=prompts, guidance=guidance,
+                              uncond_audio=uncond_audio, style=style)
         outs.append(x)
         seed = x[:, -plan.pre_frames :]
     return _stitch(outs, plan.pre_frames)
@@ -283,7 +297,8 @@ def make_fused_loop_sampler(mdm: MDM, diffusion, plan: WindowPlan, *, weights_dt
         at_all = encode_windows(mdm, audio_windows, word_windows, pre)
         seed, outs = init_seed, []
         for w in range(plan.num_windows):
-            x = fused_window(mdm, fused, at_all[w], seed, noise[w])
+            with tracking.span("sample.window", path="k1"):
+                x = fused_window(mdm, fused, at_all[w], seed, noise[w])
             outs.append(x)
             seed = x[:, -pre:]
         return _stitch(outs, pre)
@@ -334,12 +349,15 @@ def sample_windows_fused(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, w
     n = diffusion.num_steps
     seed, outs = init_seed, []
     for w in range(plan.num_windows):
-        cond = mdm.encode_cond(audio_windows[w], word_windows[w], seed)
-        cond = Conditioning(at_feat=cond.at_feat, seed_emb=cond.seed_emb)
-        x = noise[w]
-        for it in range(n):
-            te = t_emb_all[n - 1 - it][None].expand(b, -1)
-            x = float(coef_a[it]) * x + float(coef_b[it]) * denoise(x, te, cond)
+        with tracking.span("sample.window", path="k2"):
+            with tracking.span("sample.encode", branches=1):
+                cond = mdm.encode_cond(audio_windows[w], word_windows[w], seed)
+            cond = Conditioning(at_feat=cond.at_feat, seed_emb=cond.seed_emb)
+            x = noise[w]
+            for it in range(n):
+                with tracking.span("sample.step"):
+                    te = t_emb_all[n - 1 - it][None].expand(b, -1)
+                    x = float(coef_a[it]) * x + float(coef_b[it]) * denoise(x, te, cond)
         outs.append(x)
         seed = x[:, -plan.pre_frames :]
     return _stitch(outs, plan.pre_frames)
@@ -349,12 +367,13 @@ def sample_windows_fused(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, w
 def decode_latents(latents, *, rvq_modules: dict, stats, latent_scale: float = 5.0, use_trans: bool = True):
     """Latents (B, T_lat, 1536) in model space -> per-part snap + decode
     (``rvq_modules``: part -> (RVQVAE, RVQState)) -> :func:`decode_parts`."""
-    z = latents * latent_scale
-    parts = {}
-    for name, (lo, hi) in J.LATENT_SLICES.items():
-        module, state = rvq_modules[name]
-        parts[name] = module.latent2origin(z[..., lo:hi].contiguous(), state)
-    return decode_parts(parts, stats=stats, use_trans=use_trans)
+    with tracking.span("decode", rows=latents.shape[0]):
+        z = latents * latent_scale
+        parts = {}
+        for name, (lo, hi) in J.LATENT_SLICES.items():
+            module, state = rvq_modules[name]
+            parts[name] = module.latent2origin(z[..., lo:hi].contiguous(), state)
+        return decode_parts(parts, stats=stats, use_trans=use_trans)
 
 
 @torch.no_grad()

@@ -26,6 +26,15 @@ its own K1/K2 graphs and its own K3 calls; the results are gathered to the
 host in data-axis order. Each group's initial noise is still drawn once at
 the full bucket from the service's generator, then split, so a sharded
 flush sees the noise of an unsharded one.
+
+With the tracer of :mod:`~syntalker_tpu_torch.utils.tracking` on, a flush
+records the spans ``serve.flush``, ``serve.queued`` (a request's wait from
+``submit`` to its flush), ``serve.group``, ``serve.features`` (a request's
+featurization), ``serve.stage`` (padding, windows, noise), ``serve.fetch``
+(the copy to the host) and ``serve.deliver``, and counts the denoiser's
+sample rows (``serve.sample_rows``, a group's ``max_batch`` times its
+guidance branches) and decoded rows (``serve.decode_rows``), each beside
+the share that belongs to requests (``..._real``).
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.device import resolve_device
 from syntalker_tpu_torch.ops.mdm_cuda import make_fused_denoise, stack_block_weights
 from syntalker_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
+from syntalker_tpu_torch.utils import tracking
 
 
 @dataclasses.dataclass
@@ -153,14 +163,15 @@ class MotionGenerationService:
         return parts, float(g.get("audio_scale", 1.0)), float(g.get("prompt_scale", 4.0)), req.style is not None
 
     def _prepare(self, req: MotionRequest):
-        y = np.zeros(self.samples, np.float32)
-        n = min(len(req.audio), self.samples)
-        y[:n] = req.audio[:n]
-        words = np.zeros(self.plan.n_frames, np.int64)
-        if req.words is not None:
-            m = min(len(req.words), self.plan.n_frames)
-            words[:m] = req.words[:m]
-        return A.onset_amplitude_features(y, self.sr), words
+        with tracking.span("serve.features", request_id=req.request_id):
+            y = np.zeros(self.samples, np.float32)
+            n = min(len(req.audio), self.samples)
+            y[:n] = req.audio[:n]
+            words = np.zeros(self.plan.n_frames, np.int64)
+            if req.words is not None:
+                m = min(len(req.words), self.plan.n_frames)
+                words[:m] = req.words[:m]
+            return A.onset_amplitude_features(y, self.sr), words
 
     def submit(self, req: MotionRequest) -> threading.Event:
         """Queue a request; returns an event set when its result is ready
@@ -191,8 +202,11 @@ class MotionGenerationService:
         for item in batch:
             groups.setdefault(self._bucket_key(item[0]), []).append(item)
         out = []
-        for key, items in groups.items():
-            out.extend(self._run_group(key, items))
+        with tracking.span("serve.flush", requests=len(batch), groups=len(groups)):
+            for req, _, t0 in batch:
+                tracking.record("serve.queued", int(t0 * 1e9), request_id=req.request_id)
+            for key, items in groups.items():
+                out.extend(self._run_group(key, items))
         return out
 
     def _stack_rows(self, rows) -> np.ndarray:
@@ -202,48 +216,57 @@ class MotionGenerationService:
         return np.stack(rows)
 
     def _run_group(self, key, batch) -> List[MotionResult]:
-        feats, words = zip(*(self._prepare(r) for r, _, _ in batch))
-        pad = self.max_batch - len(batch)
-        audio = np.concatenate([np.stack(feats), np.zeros((pad, self.samples, 2), np.float32)])
-        word = np.concatenate([np.stack(words), np.zeros((pad, self.plan.n_frames), np.int64)])
+        branches = 2 + len(key[0]) if key and key[0] else 1  # the denoiser's guidance branches
+        with tracking.span("serve.group", key=key, rows=self.max_batch, real=len(batch), branches=branches):
+            tracking.count("serve.sample_rows", self.max_batch * branches)
+            tracking.count("serve.sample_rows_real", len(batch) * branches)
+            tracking.count("serve.decode_rows", self.max_batch)
+            tracking.count("serve.decode_rows_real", len(batch))
+            feats, words = zip(*(self._prepare(r) for r, _, _ in batch))
+            with tracking.span("serve.stage"):
+                pad = self.max_batch - len(batch)
+                audio = np.concatenate([np.stack(feats), np.zeros((pad, self.samples, 2), np.float32)])
+                word = np.concatenate([np.stack(words), np.zeros((pad, self.plan.n_frames), np.int64)])
 
-        aw = G.window_audio(audio, self.plan, sr=self.sr, fps=self.fps)
-        ww = G.window_words(word, self.plan)
-        seed = np.zeros((self.max_batch, self.plan.pre_frames, J.LATENT_DIM), np.float32)
-        noise = G.draw_noise(self.plan, self.max_batch, self._gen, self.device)
-        rows = {"seed": seed}
-        if key is not None:
-            parts, audio_scale, prompt_scale, has_style = key
-            rows["prompts"] = {p: self._stack_rows([r.prompts[p] for r, _, _ in batch]) for p in parts}
-            rows["style"] = self._stack_rows([r.style for r, _, _ in batch]) if has_style else None
-        decoded = []
-        with torch.no_grad():
-            # every shard's sampling and decode is issued before any result is copied back
-            for (_, dev), (aw_s, ww_s, noise_s), rows_s in zip(
-                    self.mesh.data_shards(), shard_batch((aw, ww, noise), self.mesh, axis=1),
-                    shard_batch(rows, self.mesh)):
-                r = self._replicas[dev]
-                if key is None:
-                    latents = r["sample"](aw_s, ww_s, rows_s["seed"], noise_s)
-                else:
-                    latents = G.sample_windows(
-                        r["mdm"], self.diffusion, self.plan, aw_s, ww_s, rows_s["seed"], noise_s, sampler="ddim",
-                        prompts=rows_s["prompts"] or None,
-                        guidance={"audio_scale": audio_scale, "prompt_scale": prompt_scale},
-                        style=rows_s["style"], denoise=r["denoise"])
-                decoded.append(G.decode_latents(latents, rvq_modules=r["rvq"], stats=self.stats,
-                                                latent_scale=self.latent_scale))
-        aa = np.concatenate([dec["axis_angle"].cpu().numpy() for dec in decoded])
-        trans = np.concatenate([dec["trans"].cpu().numpy() for dec in decoded])
+                aw = G.window_audio(audio, self.plan, sr=self.sr, fps=self.fps)
+                ww = G.window_words(word, self.plan)
+                seed = np.zeros((self.max_batch, self.plan.pre_frames, J.LATENT_DIM), np.float32)
+                noise = G.draw_noise(self.plan, self.max_batch, self._gen, self.device)
+                rows = {"seed": seed}
+                if key is not None:
+                    parts, audio_scale, prompt_scale, has_style = key
+                    rows["prompts"] = {p: self._stack_rows([r.prompts[p] for r, _, _ in batch]) for p in parts}
+                    rows["style"] = self._stack_rows([r.style for r, _, _ in batch]) if has_style else None
+            decoded = []
+            with torch.no_grad():
+                # every shard's sampling and decode is issued before any result is copied back
+                for (_, dev), (aw_s, ww_s, noise_s), rows_s in zip(
+                        self.mesh.data_shards(), shard_batch((aw, ww, noise), self.mesh, axis=1),
+                        shard_batch(rows, self.mesh)):
+                    r = self._replicas[dev]
+                    if key is None:
+                        latents = r["sample"](aw_s, ww_s, rows_s["seed"], noise_s)
+                    else:
+                        latents = G.sample_windows(
+                            r["mdm"], self.diffusion, self.plan, aw_s, ww_s, rows_s["seed"], noise_s, sampler="ddim",
+                            prompts=rows_s["prompts"] or None,
+                            guidance={"audio_scale": audio_scale, "prompt_scale": prompt_scale},
+                            style=rows_s["style"], denoise=r["denoise"])
+                    decoded.append(G.decode_latents(latents, rvq_modules=r["rvq"], stats=self.stats,
+                                                    latent_scale=self.latent_scale))
+            with tracking.span("serve.fetch"):
+                aa = np.concatenate([dec["axis_angle"].cpu().numpy() for dec in decoded])
+                trans = np.concatenate([dec["trans"].cpu().numpy() for dec in decoded])
 
-        out = []
-        now = time.perf_counter()
-        for i, (req, done, t0) in enumerate(batch):
-            res = MotionResult(req.request_id, aa[i], trans[i], now - t0)
-            self.results[req.request_id] = res
-            out.append(res)
-            done.set()
-        return out
+            out = []
+            with tracking.span("serve.deliver"):
+                now = time.perf_counter()
+                for i, (req, done, t0) in enumerate(batch):
+                    res = MotionResult(req.request_id, aa[i], trans[i], now - t0)
+                    self.results[req.request_id] = res
+                    out.append(res)
+                    done.set()
+            return out
 
     def start(self, max_wait_s: Optional[float] = None):
         """Background batching loop: flush when the bucket fills or the

@@ -114,6 +114,7 @@ def test_train_clis_end_to_end_and_generate_reads_them(corpus, tmp_path):
 
 
 def test_tracking_is_jaxs(tmp_path):
+    import json
     import random
 
     from syntalker_tpu.utils import tracking as JT
@@ -150,7 +151,18 @@ def test_tracking_is_jaxs(tmp_path):
     assert timer.data_s >= 0 and timer.step_s >= 0
     with PT.profile_trace(tmp_path / "trace"):
         torch.ones(4).sum()
+        with PT.span("decode", rows=4):
+            torch.ones(4).sum()
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    # the program's spans: a range in the trace, the span itself beside it; the tracer is off again
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert [e["name"] for e in trace["traceEvents"] if e.get("name", "").startswith("syntalker.")
+            and e["name"] != "syntalker.enable"] == ["syntalker.decode"]
+    spans = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    assert [(s["name"], s["attrs"]) for s in spans["spans"]] == [("decode", {"rows": 4})]
+    with PT.span("after"):
+        pass
+    assert PT.drain()["spans"] == []
     with PT.profile_trace(tmp_path / "off", enabled=False):
         pass
     assert not (tmp_path / "off").exists()

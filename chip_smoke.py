@@ -214,6 +214,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def k2_launches(counts: dict) -> int:
+    """K2's kernels in a phase's counts: its own graph's and those inside
+    guided windows."""
+    return counts["block_stack"] + counts["guided_window"]
+
+
 def reset_launches() -> None:
     for counts in (mdm_cuda.launches, quantize_cuda.launches):
         for key in counts:
@@ -681,7 +687,9 @@ def phase_prompted_samplers(mdm, diffusion) -> dict:
     hands, guidance 1/4. Also unguided (no prompts, the styled-only route),
     which gives the branch error that the guidance then weighs: each part's
     output is u + s_a·(a − u) + s_p·(p − u), so an error in the branches can
-    grow by up to 1 + 2·prompt_scale = 9 times."""
+    grow by up to 1 + 2·prompt_scale = 9 times. The K2 sampler's windows
+    replay the guided window's graph (K2's launches inside it); the plain
+    denoiser, a caller's own, keeps the step loop."""
     cfg = mdm.cfg
     plan = G.plan_windows(int(SERVE_SECONDS * 30))
     g = torch.Generator(device=DEV).manual_seed(12)
@@ -700,19 +708,19 @@ def phase_prompted_samplers(mdm, diffusion) -> dict:
         return G.sample_windows(mdm, diffusion, plan, aw, ww, seed, noise, sampler="ddim", prompts=p,
                                 guidance=GUIDANCE, denoise=denoise)
 
-    before = mdm_cuda.launches["block_stack"]
+    before = mdm_cuda.launches["guided_window"]
     guided = run(kernel, prompts)
-    k2 = mdm_cuda.launches["block_stack"] - before
+    k2 = mdm_cuda.launches["guided_window"] - before
     errs = {"guided": rel_err(guided, run(plain, prompts)), "unguided": rel_err(run(kernel, None), run(plain, None))}
     amplification = errs["guided"] / errs["unguided"]
     out = {"phase": "prompted_samplers", "config": H3D_CONFIG, "reference": "sample_windows on MDM.denoise f32",
            "windows": plan.num_windows, "batch": b, "parts": sorted(prompts), "guidance": GUIDANCE,
            "branches": 2 + len(prompts), "tol": SAMPLER_REL, "rel_err": errs,
            "guided_over_unguided": amplification, "amplification_bound": 1 + 2 * GUIDANCE["prompt_scale"],
-           "block_stack_launches": k2}
+           "guided_window_launches": k2}
     emit(out)
-    # at least one K2 replay a step: the guided run went through the kernel
-    assert k2 >= plan.num_windows * diffusion.num_steps * mdm_cuda.block_launches(cfg.num_layers), k2
+    # at least one guided window replay a window, each with K2's launches a step: the run went through the kernel
+    assert k2 >= plan.num_windows * mdm_cuda.guided_window_launches(cfg.num_layers, diffusion.num_steps), k2
     assert errs["guided"] <= SAMPLER_REL and errs["unguided"] <= SAMPLER_REL, errs
     return out
 
@@ -720,15 +728,15 @@ def phase_prompted_samplers(mdm, diffusion) -> dict:
 def phase_serve_prompted(mdm, diffusion, rvq) -> dict:
     """One service flush of the five ``prompted_requests``: the unprompted
     group through K1, the upper group (3 branches, 24 samples) and the
-    hands+lower group (4 branches, 32 samples) through one K2 call a step,
-    nine K3 calls. Exact launch counts on the warm flush; each group alone
+    hands+lower group (4 branches, 32 samples) through one guided window
+    graph a window (K2's launches a step inside it), nine K3 calls. Exact launch counts on the warm flush; each group alone
     after it, timed by CUDA events, with K2 at its shape held against the
     plain version; the device's busy share under the profiler."""
     svc = MotionGenerationService(mdm=mdm, diffusion=diffusion, rvq_modules=rvq, stats=identity_pose_stats(),
                                   max_batch=SERVE_BATCH, max_seconds=SERVE_SECONDS, fused_loop=True, device=DEV,
                                   seed=6)
     frames = svc.plan.out_latent_frames * svc.plan.squeeze
-    _, cold_ms, _ = timed_flush(svc, prompted_requests(6))  # captures K1's graph and K2's at 24 and 32 samples
+    _, cold_ms, _ = timed_flush(svc, prompted_requests(6))  # captures K1's graph and the guided windows' (K=3, 4)
     reset_launches()
     results, warm_ms, wall_s = timed_flush(svc, prompted_requests(7))
     counts = {**mdm_cuda.launches, **quantize_cuda.launches}
@@ -737,8 +745,8 @@ def phase_serve_prompted(mdm, diffusion, rvq) -> dict:
         assert r.axis_angle.shape == (frames, 165) and r.trans.shape == (frames, 3), r.axis_angle.shape
         assert np.isfinite(r.axis_angle).all() and np.isfinite(r.trans).all()
     layers, steps, windows = mdm.cfg.num_layers, diffusion.num_steps, svc.plan.num_windows
-    want = {"ddim_window": windows * mdm_cuda.window_launches(layers, steps),
-            "block_stack": 2 * windows * steps * mdm_cuda.block_launches(layers), "rvq_encode": 3 * len(rvq)}
+    want = {"ddim_window": windows * mdm_cuda.window_launches(layers, steps), "block_stack": 0,
+            "guided_window": 2 * windows * mdm_cuda.guided_window_launches(layers, steps), "rvq_encode": 3 * len(rvq)}
     assert counts == want, (counts, want)
 
     groups = []
@@ -1007,7 +1015,7 @@ def stream_against_offline(mdm, diffusion, rvq) -> SimpleNamespace:
     counts = {**mdm_cuda.launches, **quantize_cuda.launches}
     windows = sess.stream_stats.windows_run
     want = {"ddim_window": windows * mdm_cuda.window_launches(mdm.cfg.num_layers, diffusion.num_steps),
-            "block_stack": 0, "rvq_encode": 3 * (windows + 1)}
+            "block_stack": 0, "guided_window": 0, "rvq_encode": 3 * (windows + 1)}
     assert windows == plan.num_windows and counts == want, (windows, counts, want)
 
     aa = np.concatenate([s["axis_angle"] for s in segs])
@@ -1099,7 +1107,8 @@ def phase_stream_prompted(mdm, diffusion, rvq) -> dict:
     step's three guidance branches in one K2 call, against the same stream
     on the plain f32 ``MDM.denoise``: the latents of every window (the
     seed and the tail ring) within SAMPLER_REL; each of the stream's K3
-    calls against the plain version on its own rows. Exact counts."""
+    calls against the plain version on its own rows. Exact counts: one
+    guided window replay a window, K2's launches inside it."""
     cfg = mdm.cfg
     plan = G.plan_windows(int(STREAM_SECONDS * 30))
     g = torch.Generator(device=DEV).manual_seed(14)
@@ -1122,7 +1131,8 @@ def phase_stream_prompted(mdm, diffusion, rvq) -> dict:
     torch.cuda.synchronize()
     counts = {**mdm_cuda.launches, **quantize_cuda.launches}
     windows = len(ends)
-    want = {"ddim_window": 0, "block_stack": windows * diffusion.num_steps * mdm_cuda.block_launches(cfg.num_layers),
+    want = {"ddim_window": 0, "block_stack": 0,
+            "guided_window": windows * mdm_cuda.guided_window_launches(cfg.num_layers, diffusion.num_steps),
             "rvq_encode": 3 * (windows + 1)}
     assert counts == want, (counts, want)
     k3 = k3_calls_check(k3_calls)
@@ -1287,7 +1297,7 @@ def phase_generate(name: str, yaml: str, overrides: list, prompts: dict) -> dict
                                      generator=torch.Generator(DEV).manual_seed(cfg.train.seed), denoise=denoise,
                                      pipeline=pipeline, models=models, device=DEV, **kw)
 
-        clip(kernel)  # captures K2's graph at this clip's K·B
+        clip(kernel)  # captures the guided window's graph at this clip's (K, B)
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1300,8 +1310,9 @@ def phase_generate(name: str, yaml: str, overrides: list, prompts: dict) -> dict
         plan = G.plan_windows(int(GENERATE_SECONDS * cfg.data.pose_fps), pose_length=cfg.data.pose_length,
                               pre_frames=cfg.pre_frames)
         branches = 2 + len(prompts) if prompts else 1
-        want = {"ddim_window": 0, "rvq_encode": 3,
-                "block_stack": plan.num_windows * diffusion.num_steps * mdm_cuda.block_launches(cfg.mdm.num_layers)}
+        want = {"ddim_window": 0, "rvq_encode": 3, "block_stack": 0,
+                "guided_window": plan.num_windows * mdm_cuda.guided_window_launches(cfg.mdm.num_layers,
+                                                                                    diffusion.num_steps)}
         assert counts == want, (counts, want)
         rvq_kernels = 3 * quantize_cuda.rvq_kernel_launches(6)
 
@@ -1942,10 +1953,19 @@ def eval_overrides(d: Path, rvq_paths, mdm_path) -> list:
 
 
 def expected_k2(ev, groups: list, samples: dict, steps: int, num_layers: int) -> int:
-    """Kernels of K2 over ``groups``: one pass a step a window, plus one
-    pass the first time each batch size runs (before its graph is captured)."""
+    """Kernels of K2 over ``groups`` on the step loop (DDPM): one pass a step
+    a window, plus one pass the first time each batch size runs (before its
+    graph is captured)."""
     windows = sum(ev.plan(samples[g[0]]).num_windows for g in groups)
     return (windows * steps + len({len(g) for g in groups})) * mdm_cuda.block_launches(num_layers)
+
+
+def expected_guided(ev, groups: list, samples: dict, steps: int, num_layers: int) -> int:
+    """K2's kernels inside the guided windows over ``groups`` (η=0 DDIM):
+    one replay a window, plus one window's real run the first time each
+    batch size runs (before its graph is captured)."""
+    windows = sum(ev.plan(samples[g[0]]).num_windows for g in groups)
+    return (windows + len({len(g) for g in groups})) * mdm_cuda.guided_window_launches(num_layers, steps)
 
 
 def eval_vae_train(d: Path, iters: int) -> tuple:
@@ -2044,8 +2064,8 @@ def phase_evaluate(d: Path, rvq_paths: list, mdm_path, mdm_overrides=(), eval_va
     ev = TEST.build_evaluator(cfg, smplx, str(vae_path), mean_vel, device=DEV)
     samples = {i: cache.get(i) for i in range(len(cache))}
     groups = ev.groups(samples, EVAL_BATCH_CLIPS)
-    want = {"ddim_window": 0, "rvq_encode": 3 * len(groups),
-            "block_stack": expected_k2(ev, groups, samples, ev.diffusion.num_steps, cfg.mdm.num_layers)}
+    want = {"ddim_window": 0, "rvq_encode": 3 * len(groups), "block_stack": 0,
+            "guided_window": expected_guided(ev, groups, samples, ev.diffusion.num_steps, cfg.mdm.num_layers)}
     assert counts == want, (counts, want)
     k3 = k3_calls_check(k3_calls)
     metrics = result.as_dict()
@@ -2084,7 +2104,7 @@ def phase_evaluate(d: Path, rvq_paths: list, mdm_path, mdm_overrides=(), eval_va
     torch.cuda.synchronize()
     ddpm_s = time.perf_counter() - t0
     ddpm_counts = {**mdm_cuda.launches, **quantize_cuda.launches}
-    ddpm_want = {"ddim_window": 0, "rvq_encode": 3,
+    ddpm_want = {"ddim_window": 0, "rvq_encode": 3, "guided_window": 0,
                  "block_stack": expected_k2(ev_ddpm, [[0]], samples, ev_ddpm.diffusion.num_steps, cfg.mdm.num_layers)}
     assert ddpm_counts == ddpm_want and np.isfinite(ddpm.fid), (ddpm_counts, ddpm_want, ddpm)
 
@@ -2223,21 +2243,24 @@ def h3d_mdm(d: Path, rvq_paths: list, overrides=()) -> tuple:
 
 
 @contextlib.contextmanager
-def recorded_k2(batch: int):
-    """The input of the first K2 call at ``batch`` samples made inside, kept
-    with its weights for a comparison with the plain version after the run."""
-    seen, fused = [], mdm_cuda.block_stack
+def recorded_guided(branches: int):
+    """The first guided window call with ``branches`` guidance branches made
+    inside: its K2 weights, the shape of its K2 input (K·B, T, D) and the
+    heads, for a check of K2 at that shape against the plain version after
+    the run."""
+    seen, call = [], mdm_cuda.GuidedDDIMWindow.__call__
 
-    def record(x, w, *, num_heads):
-        if not seen and x.shape[0] == batch:
-            seen.append((x.clone(), w, num_heads))
-        return fused(x, w, num_heads=num_heads)
+    def record(win, x_init, cond, branch_weights):
+        if not seen and branch_weights.shape[0] == branches:
+            b, t, _ = x_init.shape
+            seen.append((win.blocks, (branches * b, t, win.cfg.latent_dim), win.cfg.num_heads))
+        return call(win, x_init, cond, branch_weights)
 
-    mdm_cuda.block_stack = record
+    mdm_cuda.GuidedDDIMWindow.__call__ = record
     try:
         yield seen
     finally:
-        mdm_cuda.block_stack = fused
+        mdm_cuda.GuidedDDIMWindow.__call__ = call
 
 
 def oracle_card_vs_cpu(cache, n_clips: int) -> dict:
@@ -2298,7 +2321,7 @@ def phase_h3d(rvq_iters: int = H3D_RVQ_ITERS, rvq_overrides=(), mdm_overrides=()
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with recorded_k3() as k3_calls, recorded_k2(3) as k2_calls:
+        with recorded_k3() as k3_calls, recorded_guided(3) as k2_calls:
             metrics = TEST_H3D.main(argv)
             torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
@@ -2312,13 +2335,15 @@ def phase_h3d(rvq_iters: int = H3D_RVQ_ITERS, rvq_overrides=(), mdm_overrides=()
         steps = make_diffusion(schedule=cfg.diffusion.schedule, steps=cfg.diffusion.steps,
                                timestep_respacing=cfg.diffusion.timestep_respacing or None).num_steps
         generations = H3D_REPLICATIONS * len(cache) + 2 * steer
-        passes = steps * (H3D_REPLICATIONS * sum(windows) + 2 * sum(windows[:steer]))
-        # one more pass the first time each batch size runs (1 unprompted, 3 guided branches), before its graph
-        want = {"ddim_window": 0, "rvq_encode": 3 * generations,
-                "block_stack": (passes + 2) * mdm_cuda.block_launches(cfg.mdm.num_layers)}
+        replays = H3D_REPLICATIONS * sum(windows) + 2 * sum(windows[:steer])
+        # a guided window replay a window; one window's real run the first time each shape runs (1 unprompted,
+        # 3 guided branches), before its graph
+        want = {"ddim_window": 0, "rvq_encode": 3 * generations, "block_stack": 0,
+                "guided_window": (replays + 2) * mdm_cuda.guided_window_launches(cfg.mdm.num_layers, steps)}
         assert counts == want, (counts, want)
         k3 = k3_calls_check(k3_calls)
-        (x, w, heads), = k2_calls
+        (w, shape, heads), = k2_calls
+        x = torch.randn(shape, device=DEV, generator=torch.Generator(DEV).manual_seed(24))
         k2_err = rel_err(mdm_cuda.block_stack(x, w, num_heads=heads), mdm_cuda.block_stack_plain(x, w, num_heads=heads))
         assert k2_err <= K2_REL, k2_err
 
@@ -2519,10 +2544,10 @@ def phase_convert_demo(seconds: float = DEMO_SECONDS, overrides=()) -> dict:
                               pre_frames=cfg.pre_frames)
         diffusion = make_diffusion(schedule=cfg.diffusion.schedule, steps=cfg.diffusion.steps,
                                    timestep_respacing=cfg.diffusion.timestep_respacing or "ddim50")
-        # one K2 pass a step a window, and one more at the first step, before its graph is captured
-        want = {"ddim_window": 0, "rvq_encode": 3,
-                "block_stack": (plan.num_windows * diffusion.num_steps + 1) * mdm_cuda.block_launches(
-                    cfg.mdm.num_layers)}
+        # one guided window replay a window, and one window's real run before its graph is captured
+        want = {"ddim_window": 0, "rvq_encode": 3, "block_stack": 0,
+                "guided_window": (plan.num_windows + 1) * mdm_cuda.guided_window_launches(cfg.mdm.num_layers,
+                                                                                          diffusion.num_steps)}
         assert counts == want, (counts, want)
         assert poses.shape == (4 * plan.out_latent_frames, 165) and trans.shape == (poses.shape[0], 3), poses.shape
         assert np.isfinite(poses).all() and np.isfinite(trans).all()
@@ -2577,7 +2602,7 @@ def phase_convert_demo(seconds: float = DEMO_SECONDS, overrides=()) -> dict:
         k1_counts = {**mdm_cuda.launches, **quantize_cuda.launches}
         want_k1 = {"ddim_window": plan.num_windows * mdm_cuda.window_launches(cfg.mdm.num_layers,
                                                                                diffusion.num_steps),
-                   "block_stack": 0, "rvq_encode": 0}
+                   "block_stack": 0, "guided_window": 0, "rvq_encode": 0}
         assert k1_counts == want_k1, (k1_counts, want_k1)
         f32 = dataclasses.replace(cfg.mdm, dtype=torch.float32, audio_dtype=torch.float32)
         ref_mdm = bridge.mdm_from_flax(f32, bridge.mdm_to_flax(mdm), device=DEV)
@@ -2736,7 +2761,9 @@ def phase_mesh_serve(mdm, diffusion, rvq) -> dict:
             err = (got["latents"] - shard["latents"]).abs().max().item()
             want = {"ddim_window": n * plan.num_windows * mdm_cuda.window_launches(layers, steps)
                     if route == "k1" else 0,
-                    "block_stack": 0 if route == "k1" else n * plan.num_windows * steps * mdm_cuda.block_launches(layers),
+                    "block_stack": n * plan.num_windows * steps * mdm_cuda.block_launches(layers) if route == "k2" else 0,
+                    "guided_window": n * plan.num_windows * mdm_cuda.guided_window_launches(layers, steps)
+                    if route == "prompted" else 0,
                     "rvq_encode": 3 * n}
             res[name] = {"data": n, "ms": got["ms"], "shard_batch_service_ms": shard["ms"],
                          "latents_max_abs_err_vs_shard_batch": err,
@@ -3048,8 +3075,8 @@ def main() -> int:
     h3d_launches = phase_h3d()["test_h3d"]
     h3d_launches = {**h3d_launches["launches"], "rvq_encode": h3d_launches["rvq_kernels"]}
     demo = phase_convert_demo()
-    demo_launches = {"ddim_window": demo["k1"]["launches"]["ddim_window"],
-                     "block_stack": demo["launches"]["block_stack"], "rvq_encode": demo["rvq_kernels"]}
+    demo_launches = {"ddim_window": demo["k1"]["launches"]["ddim_window"], "block_stack": demo["launches"]["block_stack"],
+                     "guided_window": demo["launches"]["guided_window"], "rvq_encode": demo["rvq_kernels"]}
     gen["trained_loop"] = loop["generate"]
     trained_stream_launches = loop["faults"]["stream"]["launches"]
     trained_stream_launches["rvq_kernels"] = loop["faults"]["stream"]["rvq_kernels"]
@@ -3060,30 +3087,33 @@ def main() -> int:
     rvq_kernels = quantize_cuda.rvq_kernel_launches(6)
     mesh_launches = {name: sum(route["one_card"]["launches"][name] if name != "rvq_encode" else
                                route["one_card"]["rvq_kernels"] for route in mesh["routes"].values())
-                     for name in ("ddim_window", "block_stack", "rvq_encode")}
+                     for name in ("ddim_window", "block_stack", "guided_window", "rvq_encode")}
     rows = [  # (name, source, TPU kernel, timings, kernels launched on the main path, on the prompted flush,
         #         on the stream (the prompted stream for K2) and on the encode path, (error, tolerance))
         ("ddim_window", src + "mdm_block.cu", "syntalker_tpu/ops/mdm_pallas.py:312", k1[SERVE_BATCH],
          serve_k1["launches"]["ddim_window"], serve_p["launches"]["ddim_window"],
          stream["launches"]["ddim_window"], 0, {"rel_err": k1[SERVE_BATCH]["rel_err"], "tol": K1_REL}),
         ("block_stack", src + "mdm_block.cu", "syntalker_tpu/ops/mdm_pallas.py:157", k2[SERVE_BATCH],
-         serve_k2["launches"]["block_stack"], serve_p["launches"]["block_stack"],
-         stream_p["launches"]["block_stack"], 0, {"rel_err": k2[SERVE_BATCH]["rel_err"], "tol": K2_REL}),
+         serve_k2["launches"]["block_stack"], k2_launches(serve_p["launches"]),
+         k2_launches(stream_p["launches"]), 0, {"rel_err": k2[SERVE_BATCH]["rel_err"], "tol": K2_REL}),
         ("rvq_encode", src + "rvq_encode.cu", "syntalker_tpu/ops/quantize_pallas.py:33", k3_row,
          serve_k1["rvq_kernels"], serve_p["rvq_kernels"], stream["rvq_kernels"],
          sum(e["k3_calls"] for e in encode.values()) * rvq_kernels,
          {"abs_err": k3_row["max_abs_err"], "tol": K3_ATOL}),
     ]
+    def launched(counts: dict, name: str) -> int:
+        return k2_launches(counts) if name == "block_stack" else counts[name]
+
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "prompted_flush_launches": prompted,
          "stream_launches": streamed, "encode_path_launches": encoded,
-         "generate_launches": {k: (v["launches"][name] if name != "rvq_encode" else v["rvq_kernels"])
+         "generate_launches": {k: (launched(v["launches"], name) if name != "rvq_encode" else v["rvq_kernels"])
                                for k, v in gen.items()},
-         "trained_stream_launches": trained_stream_launches[name if name != "rvq_encode" else "rvq_kernels"],
-         "evaluate_launches": evaluate_launches[name], "h3d_eval_launches": h3d_launches[name],
-         "convert_demo_launches": demo_launches[name], "mesh_launches": mesh_launches[name],
+         "trained_stream_launches": launched(trained_stream_launches, name if name != "rvq_encode" else "rvq_kernels"),
+         "evaluate_launches": launched(evaluate_launches, name), "h3d_eval_launches": launched(h3d_launches, name),
+         "convert_demo_launches": launched(demo_launches, name), "mesh_launches": launched(mesh_launches, name),
          "error_vs_tol": err}
         for name, source, replaces, r, launches, prompted, streamed, encoded, err in rows
     ]})

@@ -12,6 +12,9 @@ to the split outputs.
   written into its latent slice.
 
 All return ``model_fn(x_t, t) -> pred_x0`` for :mod:`.core`'s samplers.
+:func:`bodypart_branches` and :func:`bodypart_branch_weights` give the
+body-part guidance as its branches and a (K, C) weight tensor, the form the
+guided window of :mod:`~syntalker_tpu_torch.ops.mdm_cuda` replays.
 """
 
 from __future__ import annotations
@@ -65,6 +68,21 @@ def make_two_cfg_model_fn(denoise_fn: DenoiseFn, cond_audio: Conditioning, cond_
     return model_fn
 
 
+def bodypart_branches(cond_audio: Conditioning, uncond: Conditioning,
+                      part_prompt_conds: Dict[str, Optional[Conditioning]],
+                      latent_slices: Dict[str, tuple] = LATENT_SLICES):
+    """The body-part guidance's branches [uncond, cond_audio, prompted parts
+    in slice order], and each prompted part's index among them."""
+    branches = [uncond, cond_audio]
+    branch_idx: Dict[str, int] = {}
+    for name in latent_slices:
+        c = part_prompt_conds.get(name)
+        if c is not None:
+            branch_idx[name] = len(branches)
+            branches.append(c)
+    return branches, branch_idx
+
+
 def make_bodypart_cfg_model_fn(denoise_fn: DenoiseFn, cond_audio: Conditioning, uncond: Conditioning,
                                part_prompt_conds: Dict[str, Optional[Conditioning]], *, audio_scale: float = 1.0,
                                prompt_scale: float = 4.0, latent_slices: Dict[str, tuple] = LATENT_SLICES):
@@ -75,13 +93,7 @@ def make_bodypart_cfg_model_fn(denoise_fn: DenoiseFn, cond_audio: Conditioning, 
     ``prompt_scale``, except 'upper', which keeps s_a = ``audio_scale``.
     The branches are [uncond, cond_audio, prompted parts in slice order]."""
     parts = list(latent_slices)
-    branches = [uncond, cond_audio]
-    branch_idx: Dict[str, int] = {}
-    for name in parts:
-        c = part_prompt_conds.get(name)
-        if c is not None:
-            branch_idx[name] = len(branches)
-            branches.append(c)
+    branches, branch_idx = bodypart_branches(cond_audio, uncond, part_prompt_conds, latent_slices)
 
     def model_fn(x, t):
         outs = _run_branches(denoise_fn, x, t, branches)
@@ -99,3 +111,24 @@ def make_bodypart_cfg_model_fn(denoise_fn: DenoiseFn, cond_audio: Conditioning, 
         return result
 
     return model_fn
+
+
+def bodypart_branch_weights(branch_idx: Dict[str, int], channels: int, *, audio_scale: float = 1.0,
+                            prompt_scale: float = 4.0, latent_slices: Dict[str, tuple] = LATENT_SLICES,
+                            device=None) -> torch.Tensor:
+    """:func:`make_bodypart_cfg_model_fn`'s mix as (K, ``channels``) f32
+    weights W over the branches of :func:`bodypart_branches` (``branch_idx``
+    its second value): its prediction is Σ_k W[k] ⊙ out_k. Over a part's
+    slice the unconditional branch weighs 1 − s_a − s_p, the audio branch
+    s_a and the part's prompt branch s_p, by that function's rules; columns
+    outside every slice weigh 0. Made on ``device`` with fills alone (no
+    copy from the host)."""
+    w = torch.zeros(2 + len(branch_idx), channels, device=device)
+    for name, (lo, hi) in latent_slices.items():
+        s_a = audio_scale if name not in branch_idx or name == "upper" else 0.0
+        s_p = prompt_scale if name in branch_idx else 0.0
+        w[0, lo:hi] = 1.0 - s_a - s_p
+        w[1, lo:hi] = s_a
+        if name in branch_idx:
+            w[branch_idx[name], lo:hi] = s_p
+    return w

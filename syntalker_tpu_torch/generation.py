@@ -14,7 +14,11 @@ Samplers:
 - :func:`sample_windows` — the general sampler: DDPM or DDIM, the per-body-
   part prompt CFG with its guidance branches stacked into one denoise a
   step (K2 at batch K·B on the card), a MotionCLIP style; one window of it
-  is :func:`sample_window`;
+  is :func:`sample_window`. On the card, an η=0 DDIM window on the default
+  K2 denoiser replays one CUDA graph of its whole loop
+  (:class:`~syntalker_tpu_torch.ops.mdm_cuda.GuidedDDIMWindow`, one a
+  (device, K, B, T)); the CPU, DDPM and a caller's own ``denoise`` take
+  :mod:`.diffusion.core`'s step loop;
 - :func:`sample_windows_lean` — the plain reference of the unprompted η=0
   DDIM path (PyTorch f32, the algebraic folds of the JAX lean sampler);
 - :func:`make_fused_loop_sampler` — unprompted, one K1 call per window;
@@ -35,9 +39,12 @@ per-step noise.
 
 With the tracer of :mod:`~syntalker_tpu_torch.utils.tracking` on, each
 window is a ``sample.window`` span (``path`` ``k1``, ``k2``, ``guided`` or
-``plain``), each conditioning encode a ``sample.encode`` (``branches``: the
-encodes it holds), each denoising step a ``sample.step`` and each decode a
-``decode`` (``rows``).
+``plain``, and ``guided_graph`` or ``plain_graph`` where the window replays
+its graph), each conditioning encode a ``sample.encode`` (``branches``: the
+encodes it holds), each denoising step of a step loop a ``sample.step``
+(none in a graphed window: its steps are one replay) and each decode a
+``decode`` (``rows``); the guided window counts ``sample.graph_windows``
+and ``sample.graph_captures``.
 """
 
 from __future__ import annotations
@@ -51,11 +58,12 @@ import torch
 
 from syntalker_tpu_torch.data import joints as J
 from syntalker_tpu_torch.data.h3d import H3D_DIM, part_mask_623, recover_from_ric
-from syntalker_tpu_torch.diffusion.cfg import make_bodypart_cfg_model_fn
+from syntalker_tpu_torch.diffusion.cfg import (bodypart_branch_weights, bodypart_branches, make_bodypart_cfg_model_fn,
+                                                stack_conditionings)
 from syntalker_tpu_torch.diffusion.core import sample
 from syntalker_tpu_torch.models.denoiser import MDM, Conditioning, apply_rope, rope_angles
 from syntalker_tpu_torch.ops import rotations as rot
-from syntalker_tpu_torch.ops.mdm_cuda import FusedDDIMWindow, make_fused_denoise, stack_block_weights
+from syntalker_tpu_torch.ops.mdm_cuda import FusedDDIMWindow, guided_ddim_window, make_fused_denoise, stack_block_weights
 from syntalker_tpu_torch.parallel.mesh import replicate, shard_batch
 from syntalker_tpu_torch.utils import tracking
 
@@ -154,7 +162,26 @@ def make_denoise_fn(mdm: MDM, diffusion, denoise=None):
     def denoise_fn(x, t, cond):
         return denoise(x, t_emb_all[torch.searchsorted(tmap, t)], cond)
 
+    denoise_fn.denoise = denoise  # read by guided_window_for
     return denoise_fn
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
+def guided_window_for(mdm: MDM, diffusion, denoise_fn, noise, sampler: str):
+    """The :class:`~syntalker_tpu_torch.ops.mdm_cuda.GuidedDDIMWindow` that
+    runs a window of :func:`sample_window` as one graph replay, or None for
+    :mod:`.diffusion.core`'s step loop. The window is taken where the input
+    allows it: ``noise`` on the card, η=0 DDIM, and ``denoise_fn`` made by
+    :func:`make_denoise_fn` on ``mdm``'s own ``make_fused_denoise`` (its
+    K2 weights keep the window). DDPM's per-step noise, the CPU and a
+    caller's own ``denoise`` keep the step loop."""
+    denoise = getattr(denoise_fn, "denoise", None)
+    if not _on_card(noise) or sampler != "ddim" or getattr(denoise, "mdm", None) is not mdm:
+        return None
+    return guided_ddim_window(mdm, diffusion, denoise.weights)
 
 
 @torch.no_grad()
@@ -170,8 +197,12 @@ def sample_window(mdm: MDM, diffusion, denoise_fn, audio, word, seed, noise, *, 
     :func:`~syntalker_tpu_torch.diffusion.cfg.make_bodypart_cfg_model_fn`
     with ``guidance`` (``audio_scale``, ``prompt_scale``), so every step's
     branches are one denoise call. ``style`` (B, style_dim) enters every
-    encode. DDPM reads ``step_noise`` (S, B, T, 1536) or ``(it) -> noise``."""
+    encode. DDPM reads ``step_noise`` (S, B, T, 1536) or ``(it) -> noise``.
+    Where :func:`guided_window_for` finds a guided window, the branches'
+    conditionings are stacked once and the window's whole loop is one
+    graph replay; otherwise :mod:`.diffusion.core` runs the steps."""
     guidance = guidance or {}
+    window = guided_window_for(mdm, diffusion, denoise_fn, noise, sampler)
 
     def encode(**kw):
         return mdm.encode_cond(audio, word, seed, style=style, **kw)
@@ -179,18 +210,23 @@ def sample_window(mdm: MDM, diffusion, denoise_fn, audio, word, seed, noise, *, 
     if prompts is None:
         with tracking.span("sample.encode", branches=1):
             cond = encode(uncond_audio=uncond_audio)
+        if window is not None:
+            return window(noise, cond, torch.ones(1, noise.shape[-1], device=noise.device))
 
         def model_fn(x, t):
             return denoise_fn(x, t, cond)
     else:
+        scales = {"audio_scale": guidance.get("audio_scale", 1.0), "prompt_scale": guidance.get("prompt_scale", 4.0)}
         branches = 2 + sum(prompts.get(name) is not None for name in J.LATENT_SLICES)
         with tracking.span("sample.encode", branches=branches):
             part_conds = {name: None if prompts.get(name) is None
                           else encode(uncond_audio=True, prompt=prompts[name]) for name in J.LATENT_SLICES}
             cond_audio, uncond = encode(uncond_prompt=True), encode(uncond_audio=True, uncond_prompt=True)
-        model_fn = make_bodypart_cfg_model_fn(
-            denoise_fn, cond_audio, uncond, part_conds,
-            audio_scale=guidance.get("audio_scale", 1.0), prompt_scale=guidance.get("prompt_scale", 4.0))
+        if window is not None:
+            conds, index = bodypart_branches(cond_audio, uncond, part_conds)
+            return window(noise, stack_conditionings(conds),
+                          bodypart_branch_weights(index, noise.shape[-1], device=noise.device, **scales))
+        model_fn = make_bodypart_cfg_model_fn(denoise_fn, cond_audio, uncond, part_conds, **scales)
     return sample(diffusion, model_fn, noise, method=sampler, step_noise=step_noise)
 
 
@@ -206,6 +242,8 @@ def sample_windows(mdm: MDM, diffusion, plan: WindowPlan, audio_windows, word_wi
     defaults to the block stack through K2 with bf16 weights."""
     denoise_fn = make_denoise_fn(mdm, diffusion, denoise)
     path = "plain" if prompts is None else "guided"
+    if guided_window_for(mdm, diffusion, denoise_fn, noise, sampler) is not None:
+        path += "_graph"
     seed, outs = init_seed, []
     for w in range(plan.num_windows):
         noise_w = step_noise

@@ -15,7 +15,12 @@ Counterparts in ``syntalker_tpu/ops/mdm_pallas.py``:
 - ``FusedDDIMWindow`` ↔ ``make_fused_ddim_window`` / ``_ddim_window_kernel``
   (K1): every step of one window's η=0 DDIM loop, the in/out projections,
   RoPE and the update included; :func:`make_fused_ddim_window` with
-  ``mesh=`` runs one a device on the batch's data shards.
+  ``mesh=`` runs one a device on the batch's data shards;
+- ``GuidedDDIMWindow`` (no kernel counterpart: JAX's ``sample_windows``
+  runs the guided steps as a ``lax.scan`` in one compiled program): every step of one window's η=0 DDIM loop with its
+  guidance branches stacked on the batch, K2 for the block stack and the
+  rest in PyTorch at ``make_fused_denoise``'s precision, one CUDA graph a
+  window; :func:`guided_ddim_window` keeps one beside K2's graphs.
 
 The kernels are in ``csrc/mdm_block.cu`` (its header says what bounds them
 and how they are laid out). Hopper blocks carry no state from one launch to
@@ -29,8 +34,9 @@ over static buffers and replayed for every call: the TPU kernel was one
 launch a window, and a graph is the card's way to that. The graphs belong to
 the weights they read: K1's to its :class:`FusedDDIMWindow`, K2's to the
 :class:`StackedWeights` that :func:`stack_block_weights` returns. :func:`window_launches` and :func:`block_launches` give
-the number of kernels a replay runs; ``launches`` counts them under the
-kernel's name. The TPU-only knobs ``tile_samples``, ``attn_group``,
+the number of kernels a replay runs (:func:`guided_window_launches` K2's
+share of a guided window's); ``launches`` counts them under the kernel's
+name, or the guided window's. The TPU-only knobs ``tile_samples``, ``attn_group``,
 ``_VMEM_LIMIT`` and the RoPE permutation matrix have no counterpart.
 
 Each wrapper takes the plain version for CPU tensors and launches the
@@ -43,6 +49,7 @@ keep LayerNorm, softmax, residual stream and DDIM state in f32, and accept
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -51,8 +58,9 @@ import torch.nn.functional as F
 from syntalker_tpu_torch.device import full_f32
 from syntalker_tpu_torch.models.denoiser import MDM, Conditioning, rope_angles
 from syntalker_tpu_torch.ops import _build
+from syntalker_tpu_torch.utils import tracking
 
-launches = {"ddim_window": 0, "block_stack": 0}
+launches = {"ddim_window": 0, "block_stack": 0, "guided_window": 0}
 
 EPI_STORE, EPI_BIAS_BF16, EPI_BIAS_GELU_BF16, EPI_BIAS_RESIDUAL, EPI_DDIM = range(5)
 LN_EPS = 1e-6
@@ -70,11 +78,13 @@ def _b(linear):
 class StackedWeights(dict):
     """The dict of :func:`stack_block_weights`, with K2's graphs over these
     tensors beside it: ``plans`` maps (device, B, T, heads) to a
-    ``_StackPlan``."""
+    ``_StackPlan``, ``guided`` a schedule to the :class:`GuidedDDIMWindow`
+    that records these tensors' launches (:func:`guided_ddim_window`)."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.plans = {}
+        self.guided = {}
 
 
 def stack_block_weights(mdm: MDM, weights_dtype=torch.bfloat16) -> StackedWeights:
@@ -147,6 +157,13 @@ def block_launches(num_layers: int) -> int:
     """Kernels one pass of the block stack launches: per layer LayerNorm,
     qkv, attention, proj, LayerNorm, fc1, fc2."""
     return 7 * num_layers
+
+
+def guided_window_launches(num_layers: int, steps: int) -> int:
+    """K2's kernels in one guided window (:class:`GuidedDDIMWindow`): one
+    pass of the block stack a step. The window's PyTorch operations are
+    nodes of the same graph and are not counted."""
+    return steps * block_launches(num_layers)
 
 
 def window_launches(num_layers: int, steps: int) -> int:
@@ -290,8 +307,9 @@ class _Replay:
     """One CUDA graph of a fixed launch sequence over static buffers.
 
     ``record(launcher)`` makes the launches; it may read and write only
-    tensors allocated before this object is built, and must not allocate or
-    synchronise. It runs once for real on a side stream (which also fills
+    tensors allocated before this object is built, and must not
+    synchronise. PyTorch operations in it allocate their outputs from the
+    graph's private pool, which the graph keeps. It runs once for real on a side stream (which also fills
     the card's caches and loads the kernels), then once under capture, in
     the thread-local capture mode: other threads (a service's caller that
     copies the next request to the card) may go on using CUDA meanwhile.
@@ -369,6 +387,8 @@ def make_fused_denoise(mdm: MDM, weights: dict):
         xseq = mdm.prepare_sequence(x_t, t_emb, cond)
         return mdm.output_process(block_stack(xseq, weights, num_heads=heads))
 
+    # what the samplers read to find the guided window of these weights (:func:`guided_ddim_window`)
+    denoise.mdm, denoise.weights = mdm, weights
     return denoise
 
 
@@ -527,3 +547,180 @@ class _WindowPlan:
                        ca=fused.coef_a[it], cb=fused.coef_b[it])
 
         self.graph = _Replay("ddim_window", dev, record)
+
+
+class GuidedDDIMWindow:
+    """One window's guided η=0 DDIM loop: the K guidance branches of every
+    step stacked on the batch, the block stack through K2.
+
+    Built once per (model, schedule, :class:`StackedWeights`) by
+    :func:`guided_ddim_window`: the per-step timestep embeddings in
+    iteration order (iteration it is step i = S-1-it) and their rows of
+    ``input_process2``, the DDIM coefficients (a, b), RoPE tables a window
+    length. ``(x_init, cond, branch_weights)``: initial noise (B, T, C); the
+    K branches' conditionings stacked on the batch, branch-major (K·B rows,
+    :func:`~syntalker_tpu_torch.diffusion.cfg.stack_conditionings`); the
+    (K, C) f32 weights that mix the branches' predictions into the step's,
+    x0 = Σ_k W[k] ⊙ x0_k (:func:`~syntalker_tpu_torch.diffusion.cfg.bodypart_branch_weights`),
+    so one graph serves any guidance scales and prompts. Returns the final
+    state (B, T, C).
+
+    Each step runs ``make_fused_denoise``'s operations at its precisions:
+    the projections, the prompt and style concats, RoPE, the branch mix and
+    the update x ← a[it]·x + b[it]·x0 in f32 PyTorch, the block stack in K2
+    (bf16 weights and product inputs). The branches share x, so
+    ``input_process`` and its ``input_process2`` rows run at B rows, not
+    K·B; products that are the same every step are taken once: the
+    timestep's share of ``input_process2`` at build; the conditioning's
+    share of ``input_process2``, and the prompt's of ``input_process3`` and
+    the style's of ``input_process_style``, once a window.
+
+    :meth:`plain` runs that math on any device. CUDA tensors replay one
+    CUDA graph of the window, recorded once per (device, K, B, T) with K2's
+    launches made through ``_Launcher.blocks`` into the same graph, on the
+    tensors' card whichever is current. A replay counts
+    ``sample.graph_windows`` in the tracer, a capture
+    ``sample.graph_captures``. Two threads that call one window take turns:
+    a lock holds each call's copies into the static buffers, replay and copy
+    out together, issued in that order on the caller's current stream.
+    """
+
+    def __init__(self, mdm: MDM, diffusion, weights: StackedWeights):
+        cfg = self.cfg = mdm.cfg
+        d = cfg.latent_dim
+
+        def lin(m):  # (out, in) f32, as F.linear takes it
+            return m.weight.detach().float().contiguous(), m.bias.detach().float().contiguous()
+
+        self.blocks = weights
+        self.w_in, self.b_in = lin(mdm.input_process)
+        w2, self.b2 = lin(mdm.input_process2)
+        self.w2_style, self.w2_x, self.w2_at = (w2[:, :d].contiguous(), w2[:, d : 2 * d].contiguous(),
+                                                w2[:, 2 * d :].contiguous())
+        self.w3 = self.w_style = None
+        if cfg.use_prompt:
+            w3, b3 = lin(mdm.input_process3)
+            self.w3 = (w3[:, :d].contiguous(), w3[:, d:].contiguous(), b3)
+        if cfg.use_motionclip:
+            ws, bs = lin(mdm.input_process_style)
+            self.w_style = (ws[:, :d].contiguous(), ws[:, d:].contiguous(), bs)
+        self.w_out, self.b_out = lin(mdm.output_process)
+        device = self.w_in.device
+        tmap = torch.as_tensor(np.asarray(diffusion.timestep_map), dtype=torch.long, device=device)
+        with torch.no_grad():
+            self.t_embs = mdm.embed_timesteps(tmap).flip(0).float().contiguous()  # (S, D)
+            self.t_rows = F.linear(self.t_embs, self.w2_style)  # the timestep's share of input_process2
+        a, b = diffusion.ddim_coefficients()
+        self.coef_a, self.coef_b = a.tolist(), b.tolist()
+        self._rope = {}
+        self._plans = {}  # (device, K, B, T, prompt given, style given) -> _GuidedPlan
+        self._lock = threading.Lock()
+
+    rope_tables = FusedDDIMWindow.rope_tables
+
+    def _loop(self, x, at, seed_emb, prompt, style, bw, blocks, act=None):
+        """Every step on the state x (B, T, C), in place: at (K·B, T, A),
+        seed_emb (K·B, D), prompt / style (K·B, n) or None, bw (K, C);
+        ``blocks(h)`` runs the stack on h (K·B·T, D) f32 and returns its f32
+        output. ``act``, given, receives each step's stack input."""
+        cfg = self.cfg
+        kb, t, _ = at.shape
+        b, c = x.shape[0], x.shape[-1]
+        k, d, rh = kb // b, cfg.latent_dim, cfg.rope_heads
+        hd = d // rh
+        cos_t, sin_t = (tab[:, None] for tab in self.rope_tables(t, x.device))  # over the sub-heads
+        slab = (F.linear(at, self.w2_at) + F.linear(seed_emb, self.w2_style, self.b2)[:, None]).view(k, b, t, d)
+        # the prompt and style concats, where the model has them and the conditioning carries them
+        extra = [(w[0], F.linear(cond, w[1], w[2]).view(k, b, 1, d))
+                 for w, cond in ((self.w3, prompt), (self.w_style, style)) if w is not None and cond is not None]
+        bw = bw.reshape(k, 1, 1, c)
+        out = None if act is None else act.view(kb, t, rh, hd)
+        for it in range(len(self.coef_a)):
+            h = F.linear(F.linear(x, self.w_in, self.b_in), self.w2_x) + self.t_rows[it]  # (B, T, D)
+            h = h + slab  # (K, B, T, D)
+            for w_h, rows in extra:
+                h = F.linear(h, w_h) + rows
+            hh = h.view(kb, t, rh, hd)
+            rotated = torch.cat([-hh[..., hd // 2 :], hh[..., : hd // 2]], dim=-1)
+            h = blocks(torch.addcmul(hh * cos_t, rotated, sin_t, out=out).view(kb * t, d))
+            x0 = (F.linear(h, self.w_out, self.b_out).view(k, b, t, c) * bw).sum(0)
+            x.mul_(self.coef_a[it]).add_(x0, alpha=self.coef_b[it])
+        return x
+
+    @staticmethod
+    def _inputs(x_init, cond: Conditioning):
+        t = x_init.shape[1]
+        return (cond.at_feat[:, :t].float(), cond.seed_emb.float(),
+                None if cond.prompt_feat is None else cond.prompt_feat.float(),
+                None if cond.style_feat is None else cond.style_feat.float())
+
+    def plain(self, x_init: torch.Tensor, cond: Conditioning, branch_weights: torch.Tensor) -> torch.Tensor:
+        """The reference math in PyTorch, on any device: the same operations,
+        with K2 as :func:`block_stack_plain`."""
+        heads = self.cfg.num_heads
+        d = self.cfg.latent_dim
+        at, seed_emb, prompt, style = self._inputs(x_init, cond)
+        kb, t = at.shape[:2]
+
+        def blocks(h):
+            return block_stack_plain(h.view(kb, t, d), self.blocks, num_heads=heads).view(kb * t, d)
+
+        with full_f32():
+            return self._loop(x_init.float().clone(), at, seed_emb, prompt, style, branch_weights.float(), blocks)
+
+    def __call__(self, x_init: torch.Tensor, cond: Conditioning, branch_weights: torch.Tensor) -> torch.Tensor:
+        if x_init.device.type == "cpu":
+            return self.plain(x_init, cond, branch_weights)
+        _check_cuda(x_init, self.blocks)
+        inputs = self._inputs(x_init, cond)
+        b, t, _ = x_init.shape
+        key = (x_init.device, inputs[0].shape[0] // b, b, t, inputs[2] is not None, inputs[3] is not None)
+        with self._lock, torch.cuda.device(x_init.device):
+            plan = self._plans.get(key)
+            if plan is None:
+                plan = self._plans[key] = _GuidedPlan(self, x_init, inputs, branch_weights)
+                tracking.count("sample.graph_captures", 1)
+            plan.x.copy_(x_init)
+            for buf, value in zip(plan.inputs, inputs + (branch_weights,)):
+                if buf is not None:
+                    buf.copy_(value)
+            plan.graph.replay()
+            tracking.count("sample.graph_windows", 1)
+            return plan.x.clone()
+
+
+class _GuidedPlan:
+    """A guided window for one (K, B, T): the static buffers (state, the
+    branches' conditioning, the branch weights, the stack's activation and
+    scratch) and the graph of the window over them."""
+
+    def __init__(self, win: GuidedDDIMWindow, x_init, inputs, branch_weights):
+        dev = x_init.device
+        self.x = torch.zeros(x_init.shape, device=dev)
+        self.inputs = tuple(None if v is None else torch.zeros(v.shape, device=dev)
+                            for v in inputs + (branch_weights,))
+        kb, t = inputs[0].shape[:2]
+        d, heads = win.cfg.latent_dim, win.cfg.num_heads
+        act = torch.zeros(kb * t, d, device=dev)
+        bufs = _block_buffers(kb * t, d, win.blocks["wfc1"].shape[-1], dev)
+
+        def record(L: _Launcher):
+            def blocks(h):
+                L.blocks(h, win.blocks, kb, t, heads, bufs)
+                return h
+
+            win._loop(self.x, *self.inputs, blocks, act=act)
+
+        self.graph = _Replay("guided_window", dev, record)
+
+
+def guided_ddim_window(mdm: MDM, diffusion, weights: StackedWeights) -> GuidedDDIMWindow:
+    """The :class:`GuidedDDIMWindow` of ``mdm`` on ``weights`` (its
+    :func:`stack_block_weights`) for this schedule, built at the first call
+    and kept in ``weights.guided`` with its graphs."""
+    key = tuple(np.asarray(getattr(diffusion, name)).tobytes()
+                for name in ("timestep_map", "alphas_cumprod", "alphas_cumprod_prev"))
+    win = weights.guided.get(key)
+    if win is None:
+        win = weights.guided[key] = GuidedDDIMWindow(mdm, diffusion, weights)
+    return win

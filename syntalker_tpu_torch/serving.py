@@ -12,7 +12,10 @@ the service's generator.
   step. Like JAX's lean and fused samplers, this path reads no prompt.
 - Prompted or styled requests run ``generation.sample_windows`` (η=0 DDIM)
   with the per-body-part CFG: every step stacks the group's guidance
-  branches into one K2 call at batch K·``max_batch``.
+  branches into one K2 pass at batch K·``max_batch``, and on the card each
+  window replays one CUDA graph of its steps (the guided window of
+  :mod:`~syntalker_tpu_torch.ops.mdm_cuda`, kept with the replica's K2
+  weights, one a group shape).
 
 The decode snap runs K3. On the CPU the same code reaches the kernels'
 plain versions through their wrappers. There is no ``use_fused`` switch: on

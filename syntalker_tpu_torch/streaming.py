@@ -176,7 +176,7 @@ class StreamingMotionSession:
         self.generator = generator if generator is not None else torch.Generator(dev).manual_seed(0)
         self.noise = noise
         # the lean K1 window covers the plain audio path; prompts or a style
-        # take the general batched-branch window (one K2 call a step)
+        # take the general batched-branch window (one K2 pass a step; on the card one guided window graph)
         self._use_cfg = prompts is not None or style is not None
         if self._use_cfg:
             self._kernel_weights = None if denoise else stack_block_weights(self.mdm, weights_dtype)
@@ -385,8 +385,8 @@ class StreamingMotionSession:
 
     @torch.no_grad()
     def warm_up(self) -> None:
-        """Capture the window programs' graphs (K1's per-(B, T) plan or K2's
-        stacked-weight graphs) and warm the decode before the first window
+        """Capture the window programs' graphs (K1's per-(B, T) plan or the
+        guided window's) and warm the decode before the first window
         instead of at it: the first, steady and flush programs run once on
         zeros, on a scratch state. The session's own state, noise and
         counters stay untouched."""

@@ -123,6 +123,121 @@ def test_graph_replay_sees_each_calls_inputs(mdm, dev):
     assert len(fused._plans) == 2 and len(w.plans) == 2
 
 
+H3D = MDMConfig(latent_dim=512, ff_size=1024, num_layers=8, num_heads=4, rope_heads=8, audio_feat_dim=256,
+                word_feat_dim=256, word_embed_dim=300, vocab_size=11195, use_prompt=True, prompt_dim=256,
+                audio_norm="batch")  # configs/diffusion_h3d.yaml's widths
+
+
+@pytest.fixture(scope="module")
+def h3d(dev):
+    return build_mdm(H3D, seed=2, device=dev), make_diffusion(steps=1000, timestep_respacing="ddim50")
+
+
+def guided_inputs(b, parts, g, dev):
+    """One window's audio, words, seed, noise and prompts at batch b."""
+    return (torch.rand(b, 533 * 128, 2, device=dev, generator=g),
+            torch.randint(0, H3D.vocab_size, (b, 128), device=dev, generator=g),
+            torch.randn(b, 4, 1536, device=dev, generator=g), torch.randn(b, 32, 1536, device=dev, generator=g),
+            {p: torch.randn(b, H3D.prompt_dim, device=dev, generator=g) for p in parts})
+
+
+def guided_pair(model, diffusion, kernel, inputs, guidance):
+    """A prompted window through the guided window's graph, and through the
+    step loop on the same K2 (a caller's own denoise keeps the loop)."""
+    from syntalker_tpu_torch import generation as G
+
+    audio, word, seed, noise, prompts = inputs
+    outs = []
+    for denoise in (kernel, lambda x, t_emb, cond: kernel(x, t_emb, cond)):
+        fn = G.make_denoise_fn(model, diffusion, denoise)
+        outs.append(G.sample_window(model, diffusion, fn, audio, word, seed, noise, sampler="ddim", prompts=prompts,
+                                    guidance=guidance))
+    return outs
+
+
+@pytest.mark.parametrize("parts,b", [(("upper",), 8), (("hands", "lower"), 8), (("upper",), 1)],
+                         ids=["k3-b8", "k4-b8", "k3-b1"])
+def test_guided_window_graph_matches_the_step_loop(h3d, dev, parts, b):
+    """The guided window's graph at the h3d widths, DDIM-50, against the
+    eager guided ``sample_window`` on the same inputs and noise: the same
+    K2, the f32 products summed in another order."""
+    model, diffusion = h3d
+    kernel = mdm_cuda.make_fused_denoise(model, mdm_cuda.stack_block_weights(model))
+    inputs = guided_inputs(b, parts, torch.Generator(dev).manual_seed(b + len(parts)), dev)
+    before = mdm_cuda.launches["guided_window"]
+    graph, loop = guided_pair(model, diffusion, kernel, inputs, {"audio_scale": 1.0, "prompt_scale": 4.0})
+    torch.cuda.synchronize()
+    # the capture's real run, then the replay
+    assert mdm_cuda.launches["guided_window"] - before == 2 * mdm_cuda.guided_window_launches(H3D.num_layers, 50)
+    assert rel_err(graph, loop) < REL
+
+
+def test_guided_graph_replay_sees_each_calls_inputs(h3d, dev):
+    """One graph (K=3, B=2) for two calls with other prompts, guidance
+    scales and noise: each matches the step loop on its own inputs; one
+    capture, then a replay."""
+    from syntalker_tpu_torch.utils import tracking
+
+    model, diffusion = h3d
+    kernel = mdm_cuda.make_fused_denoise(model, mdm_cuda.stack_block_weights(model))
+    g = torch.Generator(dev).manual_seed(21)
+    tracking.enable()
+    try:
+        for guidance in ({"audio_scale": 1.0, "prompt_scale": 4.0}, {"audio_scale": 0.5, "prompt_scale": 2.0}):
+            graph, loop = guided_pair(model, diffusion, kernel, guided_inputs(2, ("upper",), g, dev), guidance)
+            assert rel_err(graph, loop) < REL, guidance
+    finally:
+        tracking.disable()
+        counts = tracking.drain()["counts"]
+    assert counts == {"sample.graph_captures": 1, "sample.graph_windows": 2}
+    (win,) = kernel.weights.guided.values()
+    assert [key[1:] for key in win._plans] == [(3, 2, 32, True, False)]
+
+
+def test_guided_window_threads_take_turns(dev):
+    """Four threads call one guided window (one graph) at once, each with
+    its own inputs, switching threads as often as the interpreter allows:
+    every call returns what the same call returns alone."""
+    import dataclasses
+    import sys
+    import threading
+
+    cfg = dataclasses.replace(SMALL, latent_total_dim=1536, use_prompt=True, prompt_dim=16)
+    model = build_mdm(cfg, seed=4, device=dev)
+    win = mdm_cuda.guided_ddim_window(model, make_diffusion(steps=100, timestep_respacing="ddim4"),
+                                      mdm_cuda.stack_block_weights(model))
+    g = torch.Generator(dev).manual_seed(13)
+    calls = [(torch.randn(2, 32, 1536, device=dev, generator=g),
+              Conditioning(torch.randn(6, 32, cfg.audio_feat_dim, device=dev, generator=g),
+                           torch.randn(6, cfg.latent_dim, device=dev, generator=g),
+                           prompt_feat=torch.randn(6, 16, device=dev, generator=g)),
+              torch.rand(3, 1536, device=dev, generator=g)) for _ in range(8)]
+    alone = [win(*c) for c in calls]
+    got, errors = {}, []
+
+    def work(i):
+        try:
+            for j in range(i, len(calls), 4):
+                got[j] = win(*calls[j])
+        except Exception as e:  # noqa: BLE001 (reported by the main thread)
+            errors.append(e)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[j], alone[j]) for j in range(len(calls)))
+    assert len(win._plans) == 1
+
+
 def gelu(h):
     return h * 0.5 * (1.0 + torch.erf(h * 0.70710678118654752))
 
@@ -409,13 +524,14 @@ def test_generate_clip_on_the_card_matches_plain(dev, tmp_path):
                                  generator=torch.Generator(dev).manual_seed(1), models=models, device=dev)
 
     kernel = mdm_cuda.make_fused_denoise(mdm, mdm_cuda.stack_block_weights(mdm))
-    clip(kernel)  # captures K2's graph
-    before = (mdm_cuda.launches["block_stack"], quantize_cuda.launches["rvq_encode"])
+    clip(kernel)  # captures the guided window's graph
+    before = (mdm_cuda.launches["guided_window"], quantize_cuda.launches["rvq_encode"], mdm_cuda.launches["block_stack"])
     out = clip(kernel)
     torch.cuda.synchronize()
     windows = 2  # 270 frames
-    assert mdm_cuda.launches["block_stack"] - before[0] == windows * 4 * mdm_cuda.block_launches(2)
+    assert mdm_cuda.launches["guided_window"] - before[0] == windows * mdm_cuda.guided_window_launches(2, 4)
     assert quantize_cuda.launches["rvq_encode"] - before[1] == 3
+    assert mdm_cuda.launches["block_stack"] == before[2]  # K2 runs inside the window's graph
     ref = clip(lambda x, t_emb, cond: mdm.denoise(x, None, cond, t_emb=t_emb, dtype=torch.float32))
     assert out["npz"]["poses"].shape == (240, 165) and np.isfinite(out["npz"]["poses"]).all()
     assert rel_err(out["latents"], ref["latents"]) < 5e-2
@@ -471,11 +587,11 @@ def test_h3d_generate_clip_on_the_card_matches_plain(dev, tmp_path, monkeypatch)
     plan = card.plan(sample)
     noise = card.clip_noise((0, 0, 0), plan)
     prompts = {"upper": "raise both arms"}
-    card.generate_clip(sample, noise, prompts=prompts)  # captures K2's graph at the three branches' batch
-    before = (mdm_cuda.launches["block_stack"], quantize_cuda.launches["rvq_encode"])
+    card.generate_clip(sample, noise, prompts=prompts)  # captures the guided window's graph at three branches
+    before = (mdm_cuda.launches["guided_window"], quantize_cuda.launches["rvq_encode"])
     out = card.generate_clip(sample, noise, prompts=prompts)
     torch.cuda.synchronize()
-    assert mdm_cuda.launches["block_stack"] - before[0] == plan.num_windows * 4 * mdm_cuda.block_launches(2)
+    assert mdm_cuda.launches["guided_window"] - before[0] == plan.num_windows * mdm_cuda.guided_window_launches(2, 4)
     assert quantize_cuda.launches["rvq_encode"] - before[1] == 3
     ref = plain.generate_clip(sample, noise, prompts=prompts)
     assert out["features"].shape == ref["features"].shape == (out["n_frames"], 623)

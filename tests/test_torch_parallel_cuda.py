@@ -105,7 +105,9 @@ def test_sharded_flush_on_one_card_matches_the_service_at_a_shards_batch(models,
     windows, steps, layers = 1, 8, SMALL.num_layers
     k1 = not prompted and fused_loop
     assert counts["ddim_window"] == (2 * windows * mdm_cuda.window_launches(layers, steps) if k1 else 0)
-    assert counts["block_stack"] == (0 if k1 else 2 * windows * steps * mdm_cuda.block_launches(layers))
+    # the prompted group's windows replay the guided window's graph, with K2's launches inside it
+    assert counts["block_stack"] == (2 * windows * steps * mdm_cuda.block_launches(layers) if not fused_loop else 0)
+    assert counts["guided_window"] == (2 * windows * mdm_cuda.guided_window_launches(layers, steps) if prompted else 0)
     assert counts["rvq_encode"] == 2 * 3  # two shards, three parts
 
 

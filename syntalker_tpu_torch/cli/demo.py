@@ -4,9 +4,10 @@ Usage: python -m syntalker_tpu_torch.cli.demo -c configs/diffusion_beat2.yaml \
            --wav input.wav [test_ckpt=... rvq_ckpts=[...]] [--device cpu]
 
 Counterpart of ``syntalker_tpu/cli/demo.py``. With ``--wav`` it runs once:
-the optional transcription (whisper through ``transformers``, from a local
-snapshot given by ``--whisper-path``; without one the words are silence
-and the denoiser runs on the audio alone), then ``generate --render``,
+the optional transcription (the port's own Whisper,
+:mod:`~syntalker_tpu_torch.models.whisper`, from a local Hugging Face
+snapshot directory given by ``--whisper-path``; without one the words are
+silence and the denoiser runs on the audio alone), then ``generate --render``,
 which writes ``demo_out.npz`` and its stick-figure video under
 ``--run-dir``. Without ``--wav`` it serves a Gradio page where that package
 is installed and exits with a message where it is not. Runs on CUDA unless
@@ -24,19 +25,22 @@ from syntalker_tpu_torch.cli.common import base_parser, setup
 log = logging.getLogger("syntalker")
 
 
-def transcribe_if_available(wav_path: str, whisper_path: str = "") -> str:
-    """The whisper transcript of the wav, or "" without a snapshot (or
-    without ``transformers``)."""
+def transcribe_if_available(wav_path: str, whisper_path: str = "", device=None) -> str:
+    """The transcript of the wav, or "" without a snapshot. ``whisper_path``
+    is a local Hugging Face snapshot directory (``config.json``,
+    ``model.safetensors``; ``vocab.json`` for the text, without which each
+    token id is a word); nothing is downloaded. Each 30 s of the clip is one
+    row of one greedy batch."""
     if not whisper_path:
         return ""
-    try:
-        from transformers import pipeline
+    from syntalker_tpu_torch.data.audio import load_wav_mono
+    from syntalker_tpu_torch.models.whisper import N_SAMPLES, SAMPLE_RATE, load_snapshot
 
-        asr = pipeline("automatic-speech-recognition", model=whisper_path, local_files_only=True)
-        return asr(wav_path)["text"]
-    except Exception as e:  # a missing package, snapshot or file: the demo runs on the audio alone
-        log.warning(f"ASR unavailable: {e}")
-        return ""
+    asr = load_snapshot(whisper_path, device=device)
+    y, _ = load_wav_mono(wav_path, SAMPLE_RATE)
+    chunks = [y[i : i + N_SAMPLES] for i in range(0, max(len(y), 1), N_SAMPLES)]
+    tokens = asr.transcribe(chunks, [asr.max_new_tokens] * len(chunks))
+    return " ".join(w for t in tokens for w in asr.words(t))
 
 
 def run_one(cfg_path, overrides, wav_path, prompts, run_dir, transcript="", device=None) -> str:
@@ -68,7 +72,7 @@ def main(argv=None):
     setup(args)
 
     if args.wav:  # one-shot mode
-        text = transcribe_if_available(args.wav, args.whisper_path)
+        text = transcribe_if_available(args.wav, args.whisper_path, args.device)
         video = run_one(args.config, args.overrides, args.wav, {}, args.run_dir, transcript=text, device=args.device)
         log.info(f"demo output: {video}")
         return video
@@ -79,9 +83,9 @@ def main(argv=None):
         raise SystemExit("gradio is not installed; run one-shot mode with --wav input.wav")
 
     def fn(audio_file, upper, hands, lower):
+        text = transcribe_if_available(audio_file, args.whisper_path, args.device)
         return run_one(args.config, args.overrides, audio_file, {"upper": upper, "hands": hands, "lower": lower},
-                       tempfile.mkdtemp(), transcript=transcribe_if_available(audio_file, args.whisper_path),
-                       device=args.device)
+                       tempfile.mkdtemp(), transcript=text, device=args.device)
 
     gr.Interface(
         fn=fn,

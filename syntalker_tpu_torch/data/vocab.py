@@ -140,15 +140,13 @@ def words_to_frame_ids(
 ) -> np.ndarray:
     """Per-motion-frame word ids (beat_sep_lower.py:515-548): the word whose
     alignment interval covers the frame time; PAD for silence marks; UNK
-    when no interval covers the frame."""
+    when no interval covers the frame. The first interval that covers a
+    frame decides it."""
     out = np.full(n_frames, vocab.UNK_token, dtype=np.int32)
-    for i in range(n_frames):
-        t = i / fps + time_offset
-        for iv in intervals:
-            if iv.min_time <= t <= iv.max_time:
-                if iv.mark.strip() == "":
-                    out[i] = vocab.PAD_token
-                else:
-                    out[i] = vocab.get_word_index(iv.mark)
-                break
+    t = np.arange(n_frames) / fps + time_offset
+    free = np.ones(n_frames, bool)
+    for iv in intervals:
+        hit = free & (iv.min_time <= t) & (t <= iv.max_time)
+        out[hit] = vocab.PAD_token if iv.mark.strip() == "" else vocab.get_word_index(iv.mark)
+        free &= ~hit
     return out

@@ -38,6 +38,17 @@ featurization), ``serve.stage`` (padding, windows, noise), ``serve.fetch``
 sample rows (``serve.sample_rows``, a group's ``max_batch`` times its
 guidance branches) and decoded rows (``serve.decode_rows``), each beside
 the share that belongs to requests (``..._real``).
+
+A request may come without ``words``. A service given an ``asr`` (a
+:class:`~syntalker_tpu_torch.models.whisper.WhisperASR`) and a word
+``vocab`` transcribes a flush's such requests in one batched call padded to
+``max_batch`` rows, before featurization, each at most its
+``max_new_tokens``; each request's words are then placed over its voiced
+audio (:func:`~syntalker_tpu_torch.data.audio.align_words_by_energy`, the
+span ``asr.align``) and turned into frame ids
+(:func:`~syntalker_tpu_torch.data.vocab.words_to_frame_ids`). Requests with
+words are untouched; without an ``asr`` their words are silence, and the
+service imports nothing of Whisper.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import torch
 from syntalker_tpu_torch import generation as G
 from syntalker_tpu_torch.data import audio as A
 from syntalker_tpu_torch.data import joints as J
+from syntalker_tpu_torch.data import vocab as V
 from syntalker_tpu_torch.device import resolve_device
 from syntalker_tpu_torch.ops.mdm_cuda import make_fused_denoise, stack_block_weights
 from syntalker_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
@@ -70,6 +82,7 @@ class MotionRequest:
     prompts: Optional[Dict[str, np.ndarray]] = None  # part -> (prompt_dim,)
     guidance: Optional[dict] = None
     style: Optional[np.ndarray] = None  # (style_dim,)
+    max_new_tokens: Optional[int] = None  # the transcription's cap where words is None (default: the ASR's most)
 
 
 @dataclasses.dataclass
@@ -90,7 +103,9 @@ class MotionGenerationService:
     moved to ``device`` (CUDA unless ``device="cpu"``), or with ``mesh`` (a
     single-process :class:`~syntalker_tpu_torch.parallel.mesh.Mesh`) copied
     to each of its devices. ``seed`` seeds the generator that draws each
-    group's initial noise, on the first data shard's device.
+    group's initial noise, on the first data shard's device. ``asr`` and
+    ``vocab`` (a :class:`~syntalker_tpu_torch.data.vocab.Vocab`) give
+    requests without ``words`` theirs; ``asr`` needs ``vocab``.
     """
 
     def __init__(
@@ -112,7 +127,12 @@ class MotionGenerationService:
         device=None,
         seed: int = 0,
         mesh: Optional[Mesh] = None,
+        asr=None,
+        vocab: Optional[V.Vocab] = None,
     ):
+        if asr is not None and vocab is None:
+            raise ValueError("a service with an asr needs the word vocab its words map to")
+        self.asr, self.vocab = asr, vocab
         if mesh is None:
             mesh = Mesh([[resolve_device(device)]], local=True)
         else:
@@ -201,15 +221,37 @@ class MotionGenerationService:
         with self._lock:
             batch = self._queue[: self.max_batch]
             self._queue = self._queue[self.max_batch :]
-        groups: Dict[Optional[tuple], list] = {}
-        for item in batch:
-            groups.setdefault(self._bucket_key(item[0]), []).append(item)
+        keys = [self._bucket_key(item[0]) for item in batch]
         out = []
-        with tracking.span("serve.flush", requests=len(batch), groups=len(groups)):
+        with tracking.span("serve.flush", requests=len(batch), groups=len(set(keys))):
             for req, _, t0 in batch:
                 tracking.record("serve.queued", int(t0 * 1e9), request_id=req.request_id)
+            if self.asr is not None:
+                batch = self._transcribe(batch)
+            groups: Dict[Optional[tuple], list] = {}
+            for key, item in zip(keys, batch):
+                groups.setdefault(key, []).append(item)
             for key, items in groups.items():
                 out.extend(self._run_group(key, items))
+        return out
+
+    def _transcribe(self, batch: list) -> list:
+        """The batch with frame word ids for each request that has none: one
+        transcription padded to ``max_batch`` rows, then each request's words
+        aligned over its own audio."""
+        todo = [i for i, (req, _, _) in enumerate(batch) if req.words is None]
+        if not todo:
+            return batch
+        reqs = [batch[i][0] for i in todo]
+        caps = [self.asr.max_new_tokens if r.max_new_tokens is None else r.max_new_tokens for r in reqs]
+        tokens = self.asr.transcribe([r.audio for r in reqs], caps, rows=self.max_batch)
+        out = list(batch)
+        for i, req, toks in zip(todo, reqs, tokens):
+            with tracking.span("asr.align", request_id=req.request_id):
+                intervals = A.align_words_by_energy(self.asr.words(toks), req.audio, self.sr)
+                frames = min(len(req.audio) * self.fps // self.sr, self.plan.n_frames)
+                words = V.words_to_frame_ids(intervals, frames, self.vocab, self.fps)
+            out[i] = (dataclasses.replace(req, words=words),) + batch[i][1:]
         return out
 
     def _stack_rows(self, rows) -> np.ndarray:

@@ -9,7 +9,8 @@ where JAX's records a ``jax.profiler`` one.
 The port's own tracer has no JAX counterpart: ``span(name, **attrs)``,
 ``record(name, start_ns, end_ns, **attrs)`` and ``count(name, n)`` at the
 program's sites (the service's flushes, groups and requests, the samplers'
-windows, encodes and steps, the decode), ``enable()`` / ``disable()``, and
+windows, encodes and steps, the decode, Whisper's transcription stages),
+``enable()`` / ``disable()``, and
 ``drain()``, which hands over what was recorded. It is off by default, and
 then a span or a count is one test of a module flag. On, a span keeps its
 id, its parent (a stack per thread), its thread, its start and end on

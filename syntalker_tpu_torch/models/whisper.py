@@ -28,7 +28,12 @@ built from the published equations (openai/whisper ``model.py`` and
   under a mask, so every step has the same shapes. Cross-attention keys and
   values are computed once a call. A row stops at ``<|endoftext|>`` or at
   its cap of new tokens; finished rows feed ``<|endoftext|>`` until every
-  row is done. Rows are padded to ``rows``.
+  row is done. Rows are padded to ``rows``; the cache's length is the
+  prompt and the longest cap rounded up to a multiple of 64
+  (:func:`context_bucket`). On the card each step replays one CUDA graph
+  of the whole step (a :class:`_DecodePlan`), recorded once per (rows,
+  cache length) over that shape's static buffers; the CPU runs the step
+  eagerly.
 
 Departures from openai's ``decode``: no suppression lists (blank, symbols,
 timestamps), no temperature fallback, no timestamp rules and no
@@ -40,10 +45,12 @@ one word (``str(id)``); with one (:class:`ByteLevelDecoder`, a snapshot's
 With the tracer of :mod:`~syntalker_tpu_torch.utils.tracking` on,
 :meth:`WhisperASR.transcribe` records the spans ``asr.mel``,
 ``asr.encode``, ``asr.cross_kv``, ``asr.prefill`` and ``asr.decode``
-(attributes steps, rows, real, tokens_real) and counts ``asr.rows``,
-``asr.rows_real``, ``asr.tokens`` (rows x generated positions, the
-prefill's included), ``asr.tokens_real`` (tokens kept) and
-``asr.decode_steps``.
+(attributes steps, rows, real, tokens_real, and path: ``graph`` or
+``eager``) and counts ``asr.rows``, ``asr.rows_real``, ``asr.tokens`` (rows
+x generated positions, the prefill's included), ``asr.tokens_real`` (tokens
+kept) and ``asr.decode_steps``; on the card also ``asr.graph_steps`` (each
+step that replays its graph) and ``asr.graph_captures`` (each graph
+recorded).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import threading
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -65,6 +73,17 @@ from syntalker_tpu_torch.utils import tracking
 SAMPLE_RATE, N_FFT, HOP, CHUNK_S = 16000, 400, 160, 30
 N_SAMPLES = SAMPLE_RATE * CHUNK_S  # 480,000: one window
 LN_EPS = 1e-5
+CTX_BUCKET = 64  # the self-attention cache's length is a multiple of this
+
+
+def context_bucket(n: int, limit: int) -> int:
+    """The cache length for ``n`` positions: ``n`` rounded up to a multiple
+    of :data:`CTX_BUCKET`, at most ``limit`` (``max_target_positions``), so
+    that calls whose longest caps differ a little share one decode graph
+    (it pays where the longest cap of a batch varies from call to call).
+    The slots past the last position stay masked: they cost masked
+    attention columns in every step."""
+    return min(-(-n // CTX_BUCKET) * CTX_BUCKET, limit)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,13 +295,16 @@ class Whisper(nn.Module):
 class DecodeState:
     """The static cache of one transcription: self-attention keys and values
     (L, B, H, n_ctx, head_dim), each layer's cross-attention (keys, values),
-    the next slot ``pos`` (a 0-dim tensor on the device) and the slot indices."""
+    the next slot ``pos`` (a 0-dim tensor on the device) and the slot
+    indices; ``plan``, on the card, the :class:`_DecodePlan` whose graph,
+    recorded over these buffers, :meth:`WhisperASR.step` replays."""
 
     k: torch.Tensor
     v: torch.Tensor
     cross: list
     pos: torch.Tensor
     slots: torch.Tensor
+    plan: Optional["_DecodePlan"] = None
 
 
 class ByteLevelDecoder:
@@ -316,7 +338,14 @@ def _bytes_to_unicode() -> dict:
 class WhisperASR:
     """Greedy batched transcription with :class:`Whisper` on the model's
     device. ``tokenizer``: a :class:`ByteLevelDecoder`, or None (each token id
-    is a word)."""
+    is a word).
+
+    On the card the decode buffers stay with the instance between calls:
+    one set of cross keys and values for each ``rows`` value it has seen
+    (2 x layers x rows x 1500 x d_model, 1.97 GB at large-v3 and 8 rows),
+    and one self-attention cache, decode graph and graph pool for each
+    (rows, cache length) pair (the cache up to 0.59 GB at 8 rows and 448
+    slots). They go when the instance goes."""
 
     def __init__(self, model: Whisper, tokenizer: Optional[ByteLevelDecoder] = None):
         from syntalker_tpu_torch.data.audio import mel_filterbank
@@ -328,6 +357,9 @@ class WhisperASR:
         self.device = w.device
         self.filters = torch.as_tensor(mel_filterbank(SAMPLE_RATE, N_FFT, self.cfg.num_mel_bins), device=self.device)
         self.head = w.float()  # the tied output projection, read in float32
+        self._cross = {}  # rows -> each layer's cross (keys, values) buffers (rows, 1500, D), on the card
+        self._plans = {}  # (rows, n_ctx) -> the DecodeState whose plan replays on the card
+        self._lock = threading.Lock()  # a transcription holds it while it uses those buffers
 
     @property
     def max_new_tokens(self) -> int:
@@ -346,8 +378,35 @@ class WhisperASR:
         return self.model.model.encoder(mel)
 
     def cross_kv(self, enc: torch.Tensor) -> list:
-        """Each decoder layer's cross-attention (keys, values) (B, H, 1500, head_dim)."""
-        return [layer.encoder_attn.kv(enc) for layer in self.model.model.decoder.layers]
+        """Each decoder layer's cross-attention (keys, values) (B, H, 1500,
+        head_dim). On the card they are written into the buffers of B rows
+        that the decode graphs read, and are views of them: the caller
+        holds them (and ``_lock``, as :meth:`transcribe` does) until its
+        last step."""
+        layers = [layer.encoder_attn for layer in self.model.model.decoder.layers]
+        if self.device.type == "cpu":
+            return [a.kv(enc) for a in layers]
+        bufs = self._cross_buffers(enc.shape[0])
+        for a, (k, v) in zip(layers, bufs):
+            k.copy_(a.k_proj(enc))
+            v.copy_(a.v_proj(enc))
+        return self._cross_views(bufs)
+
+    def _cross_buffers(self, rows: int) -> list:
+        """The cross (keys, values) buffers (rows, 1500, D), zeroed when made."""
+        bufs = self._cross.get(rows)
+        if bufs is None:
+            cfg, w = self.cfg, self.model.model.decoder.embed_tokens.weight
+            shape = (rows, cfg.max_source_positions, cfg.d_model)
+            bufs = self._cross[rows] = [
+                (torch.zeros(shape, dtype=w.dtype, device=self.device),
+                 torch.zeros(shape, dtype=w.dtype, device=self.device))
+                for _ in range(cfg.decoder_layers)]
+        return bufs
+
+    def _cross_views(self, bufs: list) -> list:
+        return [(layer.encoder_attn.split(k), layer.encoder_attn.split(v))
+                for layer, (k, v) in zip(self.model.model.decoder.layers, bufs)]
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(self.model.model.decoder.layer_norm(x).float(), self.head)
@@ -366,7 +425,15 @@ class WhisperASR:
 
     def step(self, tokens: torch.Tensor, state: DecodeState) -> torch.Tensor:
         """Feed (B,) tokens at slot ``state.pos``; the logits (B, V) of the
-        next token. Advances ``state.pos``."""
+        next token. Advances ``state.pos``. A state with a plan (the card's)
+        replays the plan's graph, and the logits are then the plan's buffer:
+        valid until the next step over that plan overwrites them."""
+        if state.plan is not None:
+            return state.plan.replay(tokens)
+        return self._step(tokens, state)
+
+    def _step(self, tokens: torch.Tensor, state: DecodeState) -> torch.Tensor:
+        """:meth:`step`'s work, run eagerly (or recorded into a graph)."""
         dec = self.model.model.decoder
         pos = state.pos.view(1)
         x = (dec.embed_tokens(tokens) + dec.embed_positions.weight.index_select(0, pos))[:, None]
@@ -376,7 +443,7 @@ class WhisperASR:
         state.pos.add_(1)
         return self._logits(x[:, 0])
 
-    def new_state(self, rows: int, n_ctx: int, cross: list) -> DecodeState:
+    def _new_cache(self, rows: int, n_ctx: int, cross: list) -> DecodeState:
         cfg, dec = self.cfg, self.model.model.decoder
         h = cfg.decoder_attention_heads
         shape = (cfg.decoder_layers, rows, h, n_ctx, cfg.d_model // h)
@@ -385,6 +452,29 @@ class WhisperASR:
                            v=torch.zeros(shape, dtype=w.dtype, device=self.device), cross=cross,
                            pos=torch.zeros((), dtype=torch.long, device=self.device),
                            slots=torch.arange(n_ctx, device=self.device))
+
+    def new_state(self, rows: int, n_ctx: int, cross: list) -> DecodeState:
+        """An empty cache of ``n_ctx`` slots over ``cross``. On the card,
+        ``cross`` is what :meth:`cross_kv` returned for ``rows`` rows, and the
+        state is the one state of (rows, n_ctx), emptied, its plan's graph
+        recorded at the first such call."""
+        if self.device.type == "cpu":
+            return self._new_cache(rows, n_ctx, cross)
+        bufs = self._cross.get(rows, ())
+        if len(bufs) != len(cross) or any(b.data_ptr() != x.data_ptr()
+                                          for pair, given in zip(bufs, cross) for b, x in zip(pair, given)):
+            raise ValueError(f"the decode graph reads cross_kv's buffers of {rows} rows: pass what it returned")
+        state = self._plans.get((rows, n_ctx))
+        if state is None:
+            with torch.cuda.device(self.device):
+                state = self._new_cache(rows, n_ctx, cross)
+                state.plan = _DecodePlan(self, state)
+            self._plans[(rows, n_ctx)] = state
+            tracking.count("asr.graph_captures", 1)
+        state.k.zero_()
+        state.v.zero_()
+        state.pos.zero_()
+        return state
 
     @torch.no_grad()
     def transcribe(self, audios: Sequence[np.ndarray], caps: Sequence[int], rows: Optional[int] = None) -> List[list]:
@@ -403,29 +493,31 @@ class WhisperASR:
             mel = self.mel(audios, rows)
         with tracking.span("asr.encode"):
             enc = self.encode(mel)
-        with tracking.span("asr.cross_kv"):
-            cross = self.cross_kv(enc)
-        state = self.new_state(rows, len(cfg.prompt) + longest, cross)
-        cap = torch.tensor(caps, device=self.device)
-        out = torch.full((rows, longest), eot, dtype=torch.long, device=self.device)
-        with tracking.span("asr.prefill"):
-            prompt = torch.tensor(cfg.prompt, device=self.device).expand(rows, -1)
-            tok = self.prefill(prompt, state).argmax(-1)
-            out[:, 0] = tok
-            done = (tok == eot) | (cap <= 1)
-            finished = bool(done.all())  # the first wait for the card: the encoder's and the prefill's work
-        made = 1
-        with tracking.span("asr.decode", rows=rows, real=n) as sp:
-            while made < longest and not finished:
-                tok = torch.where(done, eot, self.step(tok, state).argmax(-1))
-                out[:, made] = tok
-                made += 1
-                done |= (tok == eot) | (cap <= made)
-                finished = bool(done.all())
-            kept = [_until_eot(r, eot) for r in out[:n].tolist()]
-            real = sum(len(k) for k in kept)
-            if sp is not None:
-                sp.attrs.update(steps=made - 1, tokens_real=real)
+        with self._lock:  # the card's cross and cache buffers are this call's until its last step
+            with tracking.span("asr.cross_kv"):
+                cross = self.cross_kv(enc)
+            state = self.new_state(rows, context_bucket(len(cfg.prompt) + longest, cfg.max_target_positions), cross)
+            cap = torch.tensor(caps, device=self.device)
+            out = torch.full((rows, longest), eot, dtype=torch.long, device=self.device)
+            with tracking.span("asr.prefill"):
+                prompt = torch.tensor(cfg.prompt, device=self.device).expand(rows, -1)
+                tok = self.prefill(prompt, state).argmax(-1)
+                out[:, 0] = tok
+                done = (tok == eot) | (cap <= 1)
+                finished = bool(done.all())  # the first wait for the card: the encoder's and the prefill's work
+            made = 1
+            path = "eager" if state.plan is None else "graph"
+            with tracking.span("asr.decode", rows=rows, real=n, path=path) as sp:
+                while made < longest and not finished:
+                    tok = torch.where(done, eot, self.step(tok, state).argmax(-1))
+                    out[:, made] = tok
+                    made += 1
+                    done |= (tok == eot) | (cap <= made)
+                    finished = bool(done.all())
+                kept = [_until_eot(r, eot) for r in out[:n].tolist()]
+                real = sum(len(k) for k in kept)
+                if sp is not None:
+                    sp.attrs.update(steps=made - 1, tokens_real=real)
         tracking.count("asr.decode_steps", made - 1)
         tracking.count("asr.tokens", rows * made)
         tracking.count("asr.tokens_real", real)
@@ -437,6 +529,42 @@ class WhisperASR:
         if self.tokenizer is None:
             return [str(int(t)) for t in tokens]
         return self.tokenizer.decode(tokens).split()
+
+
+class _DecodePlan:
+    """The greedy step on the card for one (rows, n_ctx): one CUDA graph of
+    :meth:`WhisperASR._step` over a state whose buffers it reads and writes
+    (the self-attention cache, the slot ``pos``, the slot indices, and
+    views of the cross buffers of those rows, which every n_ctx shares) and over the fed tokens (rows,); its logits (rows, V)
+    float32 are a buffer of the graph. The state holds the plan, not the
+    other way round, so both go with the :class:`WhisperASR` that keeps them.
+
+    The step runs once for real on a side stream (cuDNN's and cuBLAS's
+    plans for these shapes are made there), then once under capture in the
+    thread-local mode, so other threads may go on using the card meanwhile.
+    The real run wrote one cache slot and moved ``pos``; :meth:`WhisperASR.new_state`
+    empties both before each transcription."""
+
+    def __init__(self, asr: WhisperASR, state: DecodeState):
+        dev = state.k.device
+        self.tokens = torch.zeros(state.k.shape[1], dtype=torch.long, device=dev)
+        current, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            asr._step(self.tokens, state)
+        current.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # a capture stream of this card: torch's default one is made once a process, on the first card that captures
+        with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(dev), capture_error_mode="thread_local"):
+            self.logits = asr._step(self.tokens, state)
+        self.device = dev
+
+    def replay(self, tokens: torch.Tensor) -> torch.Tensor:
+        with torch.cuda.device(self.device):
+            self.tokens.copy_(tokens)
+            self.graph.replay()
+        tracking.count("asr.graph_steps", 1)
+        return self.logits
 
 
 def _until_eot(row: list, eot: int) -> list:

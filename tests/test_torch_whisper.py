@@ -158,8 +158,56 @@ def test_a_row_stops_at_endoftext_and_at_its_cap(asr):
     assert got["counts"] == {"asr.rows": 3, "asr.rows_real": 2, "asr.decode_steps": 5, "asr.tokens": 18,
                              "asr.tokens_real": 9}
     decode = [s for s in got["spans"] if s.name == "asr.decode"]
-    assert [s.attrs for s in decode] == [{"rows": 3, "real": 2, "steps": 5, "tokens_real": 9}]
+    assert [s.attrs for s in decode] == [{"rows": 3, "real": 2, "path": "eager", "steps": 5, "tokens_real": 9}]
     assert [s.name for s in got["spans"]] == ["asr.mel", "asr.encode", "asr.cross_kv", "asr.prefill", "asr.decode"]
+
+
+def test_the_cache_length_is_rounded_up_to_its_bucket():
+    assert W.context_bucket(4 + 56, 448) == 64
+    assert W.context_bucket(4 + 444, 448) == 448
+    assert W.context_bucket(4 + 1, 448) == 64
+    assert W.context_bucket(64, 448) == 64 and W.context_bucket(65, 448) == 128
+    assert all(W.context_bucket(n, limit) <= limit for limit in (64, 100, 448) for n in range(1, limit + 1))
+    assert all(W.context_bucket(n, limit) >= n for limit in (64, 100, 448) for n in range(1, limit + 1))
+
+
+def test_a_bucketed_cache_gives_the_exact_caches_tokens_and_logits(asr, monkeypatch):
+    audios = [speech(3.0, 15), speech(8.0, 16)]
+    caps = [7, 13]  # 4 + 13 = 17 slots, 64 in the bucket
+    sizes = []
+    new_state = asr.new_state
+
+    def sized(rows, n_ctx, cross):
+        sizes.append(n_ctx)
+        return new_state(rows, n_ctx, cross)
+
+    monkeypatch.setattr(asr, "new_state", sized)
+    tokens, logits = logits_of_run(asr, audios, caps, rows=3)
+    monkeypatch.setattr(W, "context_bucket", lambda n, limit: n)  # the cache as long as the call needs
+    exact_tokens, exact_logits = logits_of_run(asr, audios, caps, rows=3)
+    assert sizes == [64, 17]
+    assert tokens == exact_tokens
+    for got, want in zip(logits, exact_logits):
+        assert got.shape == want.shape
+        assert rel(got, want) < 1e-5
+
+
+def test_the_cpu_decodes_eagerly_and_says_so(asr):
+    tracking.disable()
+    tracking.drain()
+    tracking.enable()
+    try:
+        tokens = asr.transcribe([speech(2.5, 17), speech(5.0, 18)], [6, 9], rows=4)
+    finally:
+        tracking.disable()
+    got = tracking.drain()
+    decode = [s for s in got["spans"] if s.name == "asr.decode"]
+    steps = max(len(t) for t in tokens) - 1
+    assert [s.attrs for s in decode] == [{"rows": 4, "real": 2, "path": "eager", "steps": steps,
+                                          "tokens_real": sum(len(t) for t in tokens)}]
+    assert got["counts"]["asr.decode_steps"] == steps
+    assert "asr.graph_steps" not in got["counts"] and "asr.graph_captures" not in got["counts"]
+    assert not asr._plans and not asr._cross
 
 
 def test_padding_rows_leave_the_real_rows_unchanged(asr):
